@@ -1,0 +1,3 @@
+from .vectors import make_dataset, DATASETS, VectorDataset
+
+__all__ = ["make_dataset", "DATASETS", "VectorDataset"]
