@@ -12,23 +12,30 @@ nor ``repro``; it reads plain attributes and arrays):
 * a fitted GBM (``base_`` and each tree's nodes) -> :func:`gbm_state`,
   :func:`gbm_from_state`;
 * IVF centroids and assignment, which give the same ``sorted_ids`` /
-  ``offsets`` layout -> :func:`ivf_from_assignment`.
+  ``offsets`` layout -> :func:`ivf_from_assignment`;
+* the LM's parameter tree (``Model.init(jax.random.PRNGKey(0))``) ->
+  :func:`model_params_from_reference`, and the RAG server's projection ->
+  :func:`retrieval_server`.
 
-:func:`install` puts all three into a built engine.
+:func:`install` puts the first three into a built engine.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from .core.gbm import GradientBoostingRegressor, RegressionTree, _Node
 from .core.planner import CorePlanner
 from .device import DEFAULT_DEVICE
 from .index.ivf import IVFIndex
+from .models.model import Model
+from .serve.retrieval import RetrievalAugmentedServer
 
 __all__ = ["gbm_state", "gbm_from_state", "planner_from_state",
-           "ivf_from_assignment", "install"]
+           "ivf_from_assignment", "install", "model_params_from_reference",
+           "retrieval_server"]
 
 _NODE_FIELDS = ("feature", "threshold", "left", "right", "value")
 
@@ -94,3 +101,48 @@ def install(engine, *, centroids: Optional[np.ndarray] = None,
         engine.planner_version += 1
     engine.plan_cache.clear()
     return engine
+
+
+def model_params_from_reference(cfg, params: Dict, device=DEFAULT_DEVICE) -> Model:
+    """The port's :class:`Model` holding the reference's weights.
+
+    ``params`` is the reference's tree as numpy arrays (``jax.tree.map(
+    np.asarray, params)``).  Its ``layers`` subtree is stacked on a leading
+    layer axis (the reference inits layers with ``jax.vmap``); layer i of
+    the port gets row i.  Every array is cast to ``cfg.dtype`` on loading.
+    """
+    model = Model(cfg, device=device)
+    state = {"embed": params["embed"], "final_ln": params["final_ln"]}
+    if not cfg.tie_embeddings:
+        state["lm_head"] = params["lm_head"]
+    for path, arr in _flatten(params["layers"]):
+        arr = np.asarray(arr)
+        if arr.shape[0] != cfg.n_layers:
+            raise ValueError(f"layers.{path}: leading axis {arr.shape[0]} != {cfg.n_layers} layers")
+        for i in range(cfg.n_layers):
+            state[f"layers.{i}.{path}"] = arr[i]
+    own = model.state_dict()
+    if set(state) != set(own):
+        raise ValueError(f"parameter names differ: reference-only {sorted(set(state) - set(own))}, "
+                         f"port-only {sorted(set(own) - set(state))}")
+    with torch.no_grad():
+        for name, arr in state.items():
+            arr = np.array(arr, np.float32)          # a writable copy
+            if tuple(arr.shape) != tuple(own[name].shape):
+                raise ValueError(f"{name}: shape {arr.shape} != {tuple(own[name].shape)}")
+            own[name].copy_(torch.from_numpy(arr))
+    return model
+
+
+def _flatten(tree: Dict, prefix: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flatten(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def retrieval_server(model: Model, ann, proj: np.ndarray) -> RetrievalAugmentedServer:
+    """The port's RAG server with the reference's projection (its ``proj``,
+    drawn from ``jax.random.PRNGKey(0)``), so both embed a prompt alike."""
+    return RetrievalAugmentedServer(model, ann, proj=np.array(proj, np.float32))

@@ -3,8 +3,9 @@
 Port of the Pallas kernel ``repro/kernels/masked_l2.py::_kernel``.  The
 kernel is CUDA C++ for ``sm_90a`` (``csrc/masked_l2_topk.cu``): it is built
 with ``nvcc`` into a shared library with a plain C interface at first use,
-into ``BUILD_DIR`` (git-ignored), and bound with :mod:`ctypes`.  The source
-explains the design and its bound on the card.
+into ``BUILD_DIR`` (git-ignored), and bound with :mod:`ctypes`, by the
+shared loader in :mod:`.nvcc`.  The source explains the design and its
+bound on the card.
 
 :func:`masked_l2_topk_dispatch` is the one entry: tensors on the CPU take
 the plain PyTorch version (:func:`repro_torch.kernels.ref.masked_l2_topk_ref`);
@@ -14,16 +15,12 @@ kernel launches and nothing else.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
+from .nvcc import BUILD_DIR, CudaLibrary
 from .ref import BIG, masked_l2_topk_ref
 
 __all__ = [
@@ -37,12 +34,8 @@ TN = 256              # corpus rows per tile (must match the .cu)
 BLOCKS_PER_SM = 4     # resident pass-1 blocks per SM the split count aims at
 MAX_D = 4096          # query tile staged in shared memory: (d, 8) f32
 SOURCE = Path(__file__).resolve().parent / "csrc" / "masked_l2_topk.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 
 launches = 0          # kernel launches since the last reset_launches()
-_lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
@@ -50,56 +43,17 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the masked_l2_topk kernel cannot be built")
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.masked_l2_topk_f32.argtypes = [
+        vp, vp, vp, i32, i64, i32, i32, i32, i32, i64, vp, vp, vp, vp,
+        ctypes.c_float, vp,
+    ]
+    lib.masked_l2_topk_f32.restype = i32
 
 
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``SOURCE`` into ``BUILD_DIR`` unless a library built from the
-    same source bytes is already there; returns the library's path.  The
-    file name carries the source hash, and the build lands under a temporary
-    name first, so concurrent builders never load a half-written file."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libmasked_l2_topk_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        if verbose:
-            print(proc.stderr.strip())
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.masked_l2_topk_f32.argtypes = [
-            vp, vp, vp, i32, i64, i32, i32, i32, i32, i64, vp, vp, vp, vp,
-            ctypes.c_float, vp,
-        ]
-        lib.masked_l2_topk_f32.restype = i32
-        _lib = lib
-    return _lib
+_LIB = CudaLibrary(SOURCE, _bind)
+build_library = _LIB.build     # (verbose=False) -> path of the built library
 
 
 def query_tile(b: int) -> int:
@@ -145,7 +99,7 @@ def masked_l2_topk_cuda(
         raise ValueError(f"unsupported shape B={b}, N={n}")
     if not (queries.is_contiguous() and corpus.is_contiguous() and mask.is_contiguous()):
         raise ValueError("masked_l2_topk_cuda needs contiguous tensors")
-    lib = _library()
+    lib = _LIB.get()
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     splits, rows = split_plan(b, n, n_sms)
     part_d = torch.empty((b, splits, k), dtype=torch.float32, device=dev)

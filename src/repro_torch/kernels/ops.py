@@ -2,7 +2,8 @@
 
 Port of ``repro/kernels/ops.py``.  Tensors on the CPU run the kernels' plain
 versions; tensors on a CUDA device launch the hand-written kernels (or
-raise).  ``decode_attention`` is ported with its kernel, in a later slice.
+raise): ``masked_l2_topk`` / ``fused_masked_topk`` for the filtered-ANN
+scans, ``decode_attention`` for the LM's decode step.
 """
 from __future__ import annotations
 
@@ -11,11 +12,13 @@ from typing import Dict, Tuple
 
 import torch
 
+from . import decode_attention as _decode_attention
 from . import masked_l2
+from .decode_attention import decode_attention_dispatch
 from .masked_l2 import KPAD, masked_l2_topk_dispatch
 
 __all__ = [
-    "masked_l2_topk", "fused_masked_topk", "KPAD",
+    "masked_l2_topk", "fused_masked_topk", "decode_attention", "KPAD",
     "record_dispatch", "dispatch_counts", "dispatch_wall",
     "reset_dispatch_stats", "kernel_launches", "reset_kernel_launches",
 ]
@@ -49,11 +52,13 @@ def reset_dispatch_stats() -> None:
 
 def kernel_launches() -> Dict[str, int]:
     """Launches of each hand-written kernel since the last reset."""
-    return {"masked_l2_topk": masked_l2.launches}
+    return {"masked_l2_topk": masked_l2.launches,
+            "decode_attention": _decode_attention.launches}
 
 
 def reset_kernel_launches() -> None:
     masked_l2.reset_launches()
+    _decode_attention.reset_launches()
 
 
 def _prep(queries: torch.Tensor, corpus: torch.Tensor, mask: torch.Tensor):
@@ -99,4 +104,21 @@ def fused_masked_topk(
 
         out = l2_topk(q, x, k, m)
         record_dispatch("fused_masked_topk_l2_topk", time.perf_counter() - t0)
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, KV, GQ, dh)
+    k_cache: torch.Tensor,  # (B, KV, S, dh) f32 or bf16
+    v_cache: torch.Tensor,  # (B, KV, S, dh)
+    length: torch.Tensor,   # (B,) valid positions, 1 <= length[b] <= S
+) -> torch.Tensor:
+    """Flash-decode GQA attention; matches ``decode_attention_ref`` and
+    returns (B, KV, GQ, dh) f32.  q is cast to f32; the caches are taken as
+    they are (f32 or bf16) and are not padded: the kernel stops at each
+    row's length and never reads the ragged tail."""
+    t0 = time.perf_counter()
+    out = decode_attention_dispatch(q.to(torch.float32).contiguous(), k_cache, v_cache,
+                                    length.to(torch.int32).contiguous())
+    record_dispatch("decode_attention", time.perf_counter() - t0)
     return out

@@ -1,17 +1,18 @@
 """Plain PyTorch versions of the kernels (the correctness contracts).
 
-Port of ``repro/kernels/ref.py``.  ``decode_attention_ref`` is ported with
-its kernel, in a later slice.
+Port of ``repro/kernels/ref.py``: the plain versions the CPU takes and
+``chip_smoke.py`` holds each CUDA kernel against on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
 from ..device import strict_fp32
 
-__all__ = ["masked_l2_topk_ref", "BIG", "lowest_id_topk"]
+__all__ = ["masked_l2_topk_ref", "decode_attention_ref", "BIG", "lowest_id_topk"]
 
 BIG = 3.4e38  # stand-in for +inf that survives arithmetic
 
@@ -45,3 +46,24 @@ def masked_l2_topk_ref(
     d, idx = lowest_id_topk(d2, k)
     empty = d >= BIG
     return d.masked_fill(empty, BIG), idx.masked_fill(empty, -1)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,        # (B, KV, GQ, dh)  one new token, grouped heads
+    k_cache: torch.Tensor,  # (B, KV, S, dh)
+    v_cache: torch.Tensor,  # (B, KV, S, dh)
+    length: torch.Tensor,   # (B,) valid KV length per sequence
+) -> torch.Tensor:
+    """GQA decode attention over a (padded) KV cache; returns (B, KV, GQ, dh)
+    f32.  Computes in f32 whatever the cache type (bf16 is widened), as the
+    kernel does; the reference oracle computes in q's type, which the
+    wrapper makes f32."""
+    strict_fp32()
+    q, k, v = q.float(), k_cache.float(), v_cache.float()
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bkgd,bksd->bkgs", q, k) * scale
+    pos = torch.arange(k.shape[2], device=k.device)
+    valid = pos[None, :] < length.to(k.device)[:, None]
+    scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, -BIG))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgs,bksd->bkgd", w, v)
