@@ -11,8 +11,10 @@ Phases, each printed as it runs:
      yardstick's and the bound;
   3b. the flash-decode attention kernel likewise, at qwen3-14b's heads over
      B in {1, 8, 32} x S in {2088, 32768} x {bf16, f32} with ragged lengths,
-     and at the reference tests' shapes; row independence (bitwise) and
-     never reading past a row's length (NaN there);
+     and at the reference tests' shapes, with the chunk size at each S; one
+     CUDA kernel per call (torch.profiler), repeated calls bitwise equal,
+     row independence (bitwise) and never reading past a row's length (NaN
+     there);
   4. the filtered-ANN main path through its public entry points on the
      arxiv dataset at the paper's full size (2.14M x 384): build -> fit ->
      query / batch_query -> ground_truth;
@@ -83,24 +85,31 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time per call: the CUDA kernels' self time under torch.profiler
-    over reps warm calls.  Back-to-back event timing of a call whose device
-    work is shorter than its host-side enqueue measures the enqueue; this
-    does not."""
+def device_ms(fn, reps: int, expect=None):
+    """(device ms per call, CUDA kernels per call): the kernels' self time
+    and count under torch.profiler over reps warm calls.  Back-to-back event
+    timing of a call whose device work is shorter than its host-side enqueue
+    measures the enqueue; this does not.  The profiler now and then drops
+    kernel records, which only lowers the count (and the time): with
+    `expect` kernels per call given, a window that saw fewer is profiled
+    again, up to three times, and the last window is returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
-    return busy / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        per_call = sum(e.count for e in ka) / reps
+        if expect is None or per_call >= expect:
+            break
+    busy = sum(e.self_device_time_total for e in ka)
+    return busy / 1e3 / reps, per_call
 
 
 def distance_band(q, d):
@@ -432,7 +441,7 @@ def decode_checks() -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.decode_attention import CHUNK, decode_attention_cuda
+    from repro_torch.kernels.decode_attention import chunk_positions, decode_attention_cuda
     from repro_torch.kernels.ref import decode_attention_ref
 
     dev = torch.device("cuda")
@@ -448,8 +457,12 @@ def decode_checks() -> dict:
               [(2, 4, 2, 1024, 64), (1, 2, 8, 512, 128), (3, 1, 4, 1536, 64),
                (2, 8, 1, 512, 128), (3, 2, 4, 300, 32)]]
     cases += [(2, 2, 16, 700, 256, dt, False) for dt in (torch.bfloat16, torch.float32)]
+    # bf16 at qwen3's dh 128 and the other group sizes: exact (1, 16) and padded (3, 12)
+    cases += [(b, kv, gq, s, 128, torch.bfloat16, False) for b, kv, gq, s in
+              [(2, 4, 1, 512), (3, 2, 3, 300), (2, 2, 12, 700), (2, 2, 16, 700)]]
     for b, kv, gq, s, dh, dt, timed in cases:
-        lengths = ragged_lengths(b, s, rng, CHUNK)
+        chunk = chunk_positions(s, dh, torch.finfo(dt).bits // 8)
+        lengths = ragged_lengths(b, s, rng, chunk)
         q = torch.randn((b, kv, gq, dh), generator=g, device=dev)
         k = torch.randn((b, kv, s, dh), generator=g, device=dev).to(dt)
         v = torch.randn((b, kv, s, dh), generator=g, device=dev).to(dt)
@@ -458,9 +471,12 @@ def decode_checks() -> dict:
         torch.cuda.synchronize()
         ref = decode_attention_ref(q, k, v, length)
         err = float((out - ref).abs().max())
-        tag = f"B={b} KV={kv} GQ={gq} S={s} dh={dh} {names[dt]}"
+        tag = f"B={b} KV={kv} GQ={gq} S={s} dh={dh} {names[dt]} chunk {chunk} ({-(-s // chunk)} chunks)"
         check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL), f"decode_attention {tag}: err {err}")
         max_err = max(max_err, err)
+        for _ in range(2):
+            check(torch.equal(decode_attention_cuda(q, k, v, length), out),
+                  f"decode_attention {tag}: a repeated call differs")
         if b == 32:
             for r in (0, 1, 17, 31):
                 solo = decode_attention_cuda(q[r:r + 1].contiguous(), k[r:r + 1], v[r:r + 1],
@@ -475,18 +491,23 @@ def decode_checks() -> dict:
                "plain": lambda: decode_attention_ref(q, k, v, length),
                "sdpa": lambda: sdpa_call(q, k, v, length)}
         wall = {n: cuda_ms(f, 20 if n == "kernel" else (3 if big else 10)) for n, f in fns.items()}
-        on_card = {n: device_ms(f, 10 if n == "kernel" else 3) for n, f in fns.items()}
+        prof = {n: device_ms(f, 10, expect=1) if n == "kernel" else device_ms(f, 3)
+                for n, f in fns.items()}
+        on_card = {n: p[0] for n, p in prof.items()}
+        per_call = prof["kernel"][1]
+        check(per_call == 1, f"decode_attention {tag}: {per_call} CUDA kernels per call, not 1")
         bound, by = decode_bound(lengths, s, kv, gq, dh, k.element_size())
         rows[(b, s, names[dt])] = dict(
             ms=wall["kernel"], plain_ms=wall["plain"], library_ms=wall["sdpa"],
             device_ms=on_card["kernel"], plain_device_ms=on_card["plain"],
-            library_device_ms=on_card["sdpa"],
+            library_device_ms=on_card["sdpa"], launches_per_call=per_call, chunk=chunk,
             bound_ms=bound, bound_by=by, max_abs_err=err, lengths=lengths)
         print(f"[decode] {tag} positions {sum(lengths)}: kernel {wall['kernel']:.4f} ms "
-              f"(device {on_card['kernel']:.4f}), plain {wall['plain']:.4f} "
-              f"({on_card['plain']:.4f}), sdpa {wall['sdpa']:.4f} ({on_card['sdpa']:.4f}), "
-              f"bound {bound:.6g} ms ({by}), "
-              f"max_abs_err {err:.3g}", flush=True)
+              f"(device {on_card['kernel']:.4f}, {per_call:g} kernel per call), plain "
+              f"{wall['plain']:.4f} ({on_card['plain']:.4f}), sdpa {wall['sdpa']:.4f} "
+              f"({on_card['sdpa']:.4f}), bound {bound:.6g} ms ({by}); device / bound "
+              f"{on_card['kernel'] / bound:.3f}, device / sdpa device "
+              f"{on_card['kernel'] / on_card['sdpa']:.3f}; max_abs_err {err:.3g}", flush=True)
         if (b, s, dt) == (8, 2088, torch.bfloat16):
             for r, n in enumerate(lengths):     # the kernel never reads past a length
                 k[r, :, n:], v[r, :, n:] = float("nan"), float("nan")
@@ -495,9 +516,9 @@ def decode_checks() -> dict:
             check(torch.equal(again, out), "decode_attention read a position past a row's length")
         del q, k, v, out, ref
         torch.cuda.empty_cache()
-    print("[decode] every shape within rtol=atol=2e-4 of the plain version; a row alone equals "
-          "the row in a batch of 32 (bitwise); NaN past each length never reaches the output",
-          flush=True)
+    print("[decode] every shape within rtol=atol=2e-4 of the plain version; repeated calls "
+          "equal (bitwise); a row alone equals the row in a batch of 32 (bitwise); NaN past each "
+          "length never reaches the output; one CUDA kernel per call", flush=True)
     return {"rows": rows, "max_abs_err": max_err}
 
 
@@ -617,8 +638,9 @@ def lm_serving(n_requests: int = 16, slots: int = 8, new: int = 32, max_len: int
     print(f"[lm] served tokens equal to the teacher-forced argmax: {agree}/{n_tok} = "
           f"{agree / n_tok:.4f} (bf16, not gated: prefill and decode round at other places)",
           flush=True)
-    idle = decode_idle_share(model, reqs[:slots], max_len, med)
+    idle, attn_ms = decode_idle_share(model, reqs[:slots], max_len, med)
     return {"model": model, "launches": launches, "step_ms": med, "bound_ms": bound,
+            "attention_ms_per_step": attn_ms,
             "tokens_per_s": n_tok / serve_s, "prefill_s": prefill_s, "peak_gb": peak,
             "idle_share": idle, "cache_err": cache_err}
 
@@ -655,14 +677,15 @@ def decode_idle_share(model, reqs, max_len: int, step_ms: float, n: int = 8) -> 
     busy = sum(e.self_device_time_total for e in ka) / 1e3 / n
     if busy <= 0:
         print("[lm] decode step device time not measured (profiler saw none)", flush=True)
-        return float("nan")
+        return float("nan"), float("nan")
     top = sorted(ka, key=lambda e: -e.self_device_time_total)[:5]
+    attn = sum(e.self_device_time_total for e in ka if "decode_attention" in e.key) / 1e3 / n
     idle = 1.0 - busy / step_ms
     print(f"[lm] decode step under torch.profiler: device busy {busy:.3f} ms/step against the "
           f"un-profiled {step_ms:.3f} ms/step (device idle share {idle:.3f}; profiled wall "
-          f"{wall:.3f} ms/step); top: " + "; ".join(
+          f"{wall:.3f} ms/step); decode_attention kernel {attn:.4f} ms/step; top: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / 1e3 / n:.3f} ms" for e in top), flush=True)
-    return idle
+    return idle, attn
 
 
 # ----------------------------------------------------------------------
@@ -830,6 +853,7 @@ def main(argv=None) -> int:
         "bound_by": dhead["bound_by"], "library_ms": dhead["library_ms"],
         "device_ms": dhead["device_ms"], "plain_device_ms": dhead["plain_device_ms"],
         "library_device_ms": dhead["library_device_ms"],
+        "launches_per_call": dhead["launches_per_call"], "chunk": dhead["chunk"],
         "shape": {"B": 8, "KV": 8, "GQ": 5, "S": 2088, "dh": 128, "kv_dtype": "bf16",
                   "positions": sum(dhead["lengths"])},
         "check": "ok",

@@ -10,32 +10,69 @@
 // What bounds it on an H100 SXM (3.35 TB/s HBM): the bytes of K and V.  It
 // reads sum_b length_b * KV * dh * 2 * sizeof(elem) bytes and does about 4
 // flops (2 for q.k, 2 for p.v) per K/V element per head, so with GQ = 5 and
-// bf16 about 5 flop/B, far below the card's ~295 flop/B ridge: memory-bound.
-// For qwen3-14b (KV 8, dh 128, bf16) that is 4096 B per position per row:
-//   * B=8 rows of ~1.2k positions: ~38 MB -> ~11 us at 3.35 TB/s;
-//   * B=32 at S=32768 (decode_32k's context): 4.29 GB -> ~1.28 ms.
-// What the design does about it:
-//   * The TPU grid (B, KV, S_tiles) swept S in order, carrying the online
-//     softmax state in VMEM.  Hopper's blocks run in parallel, so pass 1
-//     cuts S into fixed CHUNK-position chunks, one block per (b, kv, chunk),
-//     and writes each chunk's partial (m, l, acc[dh]) per head to fp32
-//     scratch; pass 2 combines each (b, kv)'s chunks in chunk order.  Chunk
-//     boundaries depend on the position only (never on B or the SM count),
-//     so a row's result is bitwise the same alone or in any batch.
-//   * Positions >= length[b] are never read: a chunk that starts at or past
-//     the length exits at once, and the last chunk stops at the length.  (On
-//     the TPU they were read and contributed exp(NEG - m) = 0.)
-//   * One K/V read serves every query head of the group: the block keeps its
-//     GQ queries in registers (fp32) and applies each loaded K/V element to
-//     all of them.  Rows are read with 16-byte loads, a group of LPR lanes
-//     per row, neighbouring lanes on neighbouring bytes.
-//   * Each lane group issues U = 4 rows' 16-byte loads before it uses any,
-//     so a warp keeps 4 loads per lane in flight: one row at a time left
-//     the sweep bound by load latency, not by bandwidth.
-//   * Warps take disjoint positions of the chunk; their V accumulators are
-//     combined in fixed warp order, and every other sum has a fixed order
-//     too, so the result does not vary from run to run.
-// TMA, a persistent grid and a fused single pass are later work.
+// bf16 about 5 flop/B, far below the card's ~295 flop/B ridge: memory-bound,
+// and tensor cores do not help.  What matters is the bytes in flight on each
+// SM and how many SMs have work.
+//
+// One launch per call.  The grid is one block per (position chunk, kv head,
+// row b); a block past its row's length exits at once.  Each design point
+// answers a cost the first, two-launch version of this kernel measured on the card
+// [H100 80GB HBM3, 700 W; chip_smoke.py phase 3b, bf16, device time]:
+// 0.3703 ms at B=1, S=32768 (SDPA 0.0618), 0.0581 ms at the serving shape
+// B=8, S=2088 (bound 0.0110, SDPA 0.0428), 1.8314 ms at B=32, S=32768
+// (bound 0.6511, SDPA 1.4150).
+//   * No second pass.  The first version combined a row's chunks in a second
+//     launch with B*KV blocks, each walking every chunk twice: 8 blocks at
+//     B=1, the rest of the card idle.  Here each block writes its chunk's fp32
+//     partial (m, l, acc) to a workspace and counts in on a per-(b, kv)
+//     counter (one release/acquire atomic by one thread, after a block
+//     barrier); the block that arrives last for its row combines the row's
+//     partials in chunk order (never arrival order), spread over all its
+//     threads with 16 chunks' loads in flight, writes out and resets the
+//     counter to 0 for the next call.  A row of one chunk writes out
+//     directly.  The counter's target is the row's live chunk count.  Only
+//     the counter is atomic: no float atomics.
+//   * K and V staged through shared memory by the copy engine.  A (b, kv)
+//     run of rows is one contiguous byte range in the (B, KV, S, dh) layout,
+//     so a 1-D `cp.async.bulk` with an mbarrier moves a sub-tile of rows
+//     without a tensor map.  Each warp owns a ring of MAX_STAGES sub-tiles
+//     (K and V of R rows, STAGE_BYTES together) and sweeps the chunk's
+//     sub-tiles w, w + WARPS, ...; the copy of the next stage is in flight
+//     while it computes on one.  The softmax is online across a warp's
+//     sub-tiles (running m, l, acc, rescaled once per sub-tile), so the sweep
+//     has no block barrier at all: the first version's K sweep -> barriers ->
+//     block softmax -> V sweep kept K and V loads from overlapping.  One
+//     end-of-chunk reduction combines the warps in warp order.  The last
+//     sub-tile copies only the rows below the length (a row is dh * elem >= 64
+//     bytes, a multiple of 16), so no byte past a length is read; rows of a
+//     stage past the copied count are masked out of the scores and the V sum.
+//   * Fewer instructions per byte.  At GQ = 5 and bf16 a sub-tile costs about
+//     2.5 FMAs per K/V byte on the CUDA cores, so with all blocks of a short
+//     cache waiting for data together and then computing together, the
+//     instruction count shows in the time.  The q.k sums over a row's lanes
+//     are reduced transposed (each lane keeps half of its rows at each level,
+//     so the rows end up spread over the lanes instead of every lane summing
+//     every row), which also leaves one exp per (row, head) instead of one
+//     per lane; the p of a sub-tile reach the V sweep through shared memory.
+//   * Chunk size from S, dh and the element type only, never from B or the
+//     lengths (`chunk_positions`, mirrored by the wrapper, which passes it
+//     in): a row alone and the same row in a batch split, sum and combine in
+//     the same order and give the same bits.  It is whole passes of the
+//     block's warps, as many as leave at least 17 chunks (136 blocks at B=1
+//     over qwen3's 8 kv heads, for 132 SMs) up to 16 passes, and about S / 32
+//     past that: few, large chunks share each block's fixed cost (the copy's
+//     latency, the end-of-chunk reduction, the arrival) on short caches, and
+//     32-63 chunks spread a long row over the SMs.
+//   * Per-head state at the exact group sizes the repo's configs use (5 for
+//     qwen3; 1, 2, 4, 8, 16 in the reference tests), padded to 8 or 16 with
+//     warp-uniform skips for the other sizes up to 16.  Registers are held to
+//     three blocks an SM at qwen3's group of 5 (`min_blocks`).
+//   * Nothing is allocated per call but `out`: the wrapper caches the
+//     workspace and its counters, zeroed once; the kernel leaves them zero.
+//     Two calls that run at once on different streams must not share a
+//     workspace, so the wrapper keys it on the stream.
+// Within a warp, a K/V row is read as 16-byte pieces by LPR lanes, the GQ
+// queries sit in registers and one K/V element serves every head of the group.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,307 +80,568 @@
 
 namespace {
 
-constexpr int CHUNK = 256;     // positions per pass-1 block (wrapper: CHUNK)
-constexpr int THREADS = 256;   // one softmax position per thread
-constexpr int WARPS = THREADS / 32;
-constexpr int U = 4;           // rows per lane group with loads in flight
+constexpr int WARPS = 4;               // warps per block (wrapper: WARPS)
+constexpr int THREADS = WARPS * 32;
+constexpr int STAGE_BYTES = 8192;      // K + V bytes of one sub-tile (wrapper: STAGE_BYTES)
+constexpr int MAX_STAGES = 2;          // sub-tiles in each warp's ring
+constexpr int MIN_CHUNKS = 17;         // chunks a row has from S = 16 passes on (wrapper: MIN_CHUNKS)
+constexpr int LONG_CHUNKS = 32;        // chunks a long row aims at (wrapper: LONG_CHUNKS)
+constexpr int MAX_PASSES = 16;         // passes a chunk grows to before LONG_CHUNKS applies
+constexpr int MAX_CHUNKS = 2 * LONG_CHUNKS;    // the rule never gives more
 constexpr unsigned FULL = 0xffffffffu;
-static_assert(CHUNK == THREADS, "the softmax step gives each thread one position");
+constexpr float LOG2E = 1.4426950408889634f;
 
-// 16 bytes of K/V, loaded raw, then widened to floats.
-__device__ __forceinline__ uint4 load16(const void* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
+__host__ __device__ constexpr int ilog2(int x) { return x > 1 ? 1 + ilog2(x / 2) : 0; }
+
+// rows of K (and of V) in one sub-tile
+__host__ __device__ constexpr int sub_rows(int dh, int elem) {
+  return STAGE_BYTES / (2 * dh * elem);
 }
 
-__device__ __forceinline__ void widen(const uint4& raw, const float*, float* out) {
+// positions per chunk; mirrors kernels/decode_attention.py::chunk_positions
+int chunk_positions(int s, int dh, int elem) {
+  const int pass = WARPS * sub_rows(dh, elem);
+  const int few = (s - 1) / ((MIN_CHUNKS - 1) * pass);   // passes that leave >= MIN_CHUNKS
+  const int lng = s / (LONG_CHUNKS * pass);
+  const int cap = lng > MAX_PASSES ? lng : MAX_PASSES;
+  const int m = few < cap ? few : cap;
+  return pass * (m > 1 ? m : 1);
+}
+
+// blocks per SM the register budget is held to: 3 for qwen3's group of 5
+__host__ __device__ constexpr int min_blocks(int gqm) { return gqm <= 5 ? 3 : 1; }
+
+// ---- PTX: mbarriers and bulk copies -----------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete.  A copy that never lands
+// is a bug: trap after ~10 s of cycles rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// Add 1 to a row's arrival counter with release and acquire semantics at
+// device scope; returns the count before.
+__device__ __forceinline__ int arrive(int* counter) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;" : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
+
+// 16 bytes of K/V, widened to floats
+__device__ __forceinline__ void widen(const uint4& raw, float* out, const float*) {
   out[0] = __uint_as_float(raw.x);
   out[1] = __uint_as_float(raw.y);
   out[2] = __uint_as_float(raw.z);
   out[3] = __uint_as_float(raw.w);
 }
 
-__device__ __forceinline__ void widen(const uint4& raw, const __nv_bfloat16*, float* out) {
-  alignas(16) __nv_bfloat16 e[8];
-  *reinterpret_cast<uint4*>(e) = raw;
+__device__ __forceinline__ void widen(const uint4& raw, float* out, const __nv_bfloat16*) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
+  for (int i = 0; i < 4; ++i) {          // element 2i is the low half of word i
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
-// Pass 1: block (chunk c, kv head, row b).  GQM >= gq is the register width
-// of the per-head state; heads g >= gq are skipped (warp-uniform branches).
-template <typename T, int DH, int GQM>
-__global__ void __launch_bounds__(THREADS)
-decode_pass1(const float* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ lengths, int KV,
-             int S, int gq, int n_chunks, float* __restrict__ part_m,
-             float* __restrict__ part_l, float* __restrict__ part_acc) {
-  constexpr int VEC = 16 / sizeof(T);                 // elements per load
-  constexpr int LPR = (DH / VEC < 32) ? DH / VEC : 32;  // lanes per K/V row
-  constexpr int EPL = DH / LPR;                       // elements per lane
-  constexpr int NV = EPL / VEC;                       // loads per lane per row
+// Block (chunk c, kv head, row b).  GQM is the register width of the
+// per-head state; PAD says gq < GQM, and heads g >= gq are skipped.
+// Workspace: part_m, part_l (B, KV, n_chunks, gq) and part_acc
+// (B, KV, n_chunks, gq, DH) f32, one after the other in `part`; counters
+// (B, KV) int32, zero between calls.
+template <typename T, int DH, int GQM, bool PAD>
+__global__ void __launch_bounds__(THREADS, min_blocks(GQM))
+decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ lengths, int B, int KV,
+                        int S, int gq, int chunk, int n_chunks, int n_stages,
+                        float* __restrict__ part, int* __restrict__ counters,
+                        float* __restrict__ out) {
+  constexpr int ELEM = sizeof(T);
+  constexpr int VEC = 16 / ELEM;                      // elements per 16-byte piece
+  constexpr int CPR = DH / VEC;                       // pieces per row
+  constexpr int LPR = CPR < 32 ? CPR : 32;            // lanes per row
+  constexpr int NV = CPR / LPR;                       // pieces per lane per row
+  constexpr int EPL = NV * VEC;                       // elements per lane
   constexpr int RPW = 32 / LPR;                       // rows per warp step
-  static_assert(NV * VEC * LPR == DH, "row split");
+  constexpr int R = sub_rows(DH, ELEM);               // rows per sub-tile
+  constexpr int STEPS = R / RPW;
+  constexpr int ROW_BYTES = DH * ELEM;
+  constexpr int TL = ilog2(LPR) < ilog2(STEPS) ? ilog2(LPR) : ilog2(STEPS);  // transposed levels
+  constexpr int JF = STEPS >> TL;                     // rows a lane ends with
+  constexpr int DUP = LPR >> TL;                      // lanes that end with the same rows
+  constexpr int GP = (GQM + 3) / 4 * 4;               // heads padded to a float4
+  static_assert(NV * LPR == CPR && R % RPW == 0 && R * ROW_BYTES * 2 == STAGE_BYTES,
+                "tile split");
 
   const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int len = min(lengths[b], S);
-  const int start = c * CHUNK;
-  if (start >= len) return;                           // nothing valid here
-  const int n = min(CHUNK, len - start);
-
-  __shared__ float qa_s[GQM][DH];   // the queries, later the V accumulator
-  __shared__ float s_s[GQM][CHUNK]; // scores, then exp(score - m)
-  __shared__ float red_s[WARPS][GQM];
-  __shared__ float m_s[GQM];
-
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int sub = lane % LPR, row = lane / LPR;
+  const int len = min(lengths[b], S);
   const size_t bk = (size_t)b * KV + kvh;
-  const float* qb = q + bk * gq * DH;
-  for (int i = tid; i < GQM * DH; i += THREADS)
-    qa_s[i / DH][i % DH] = (i / DH < gq) ? qb[i] : 0.f;
-  __syncthreads();
+  const int ng = PAD ? gq : GQM;                      // live heads
+  float* outb = out + bk * ng * DH;
+  if (len <= 0) {                                     // nothing to attend to
+    if (c == 0)
+      for (int i = tid; i < ng * DH; i += THREADS) outb[i] = 0.f;
+    return;
+  }
+  const int start = c * chunk;
+  if (start >= len) return;                           // past the row's length
+  const int n = min(chunk, len - start);
+  const int nc = (len + chunk - 1) / chunk;           // the row's live chunks
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[WARPS][MAX_STAGES];
+  __shared__ int is_last;
+  __shared__ float chunk_m[GQM];
+  __shared__ __align__(16) float p_s[WARPS][R][GP];   // p of the current sub-tile
+
+  const int sub = lane % LPR, rg = lane / LPR;
+  unsigned char* ring = smem + (size_t)warp * n_stages * STAGE_BYTES;
+  const int n_sub = (n + R - 1) / R;                  // sub-tiles in the chunk
+  const int mine = n_sub > warp ? (n_sub - 1 - warp) / WARPS + 1 : 0;
+  const T* kb = k + (bk * S + start) * DH;
+  const T* vb = v + (bk * S + start) * DH;
+
+  // lane 0: copy this warp's i-th sub-tile (chunk sub-tile warp + i * WARPS)
+  // into stage i % n_stages; K in the first half, V in the second
+  auto fetch = [&](int i) {
+    const int r0 = (warp + i * WARPS) * R;
+    const uint32_t bytes = (uint32_t)min(R, n - r0) * ROW_BYTES;
+    const int stage = i % n_stages;
+    const uint32_t dst = smem_u32(ring + stage * STAGE_BYTES);
+    const uint32_t bar = smem_u32(&bars[warp][stage]);
+    mbar_expect(bar, 2 * bytes);
+    bulk_load(dst, kb + (size_t)r0 * DH, bytes, bar);
+    bulk_load(dst + STAGE_BYTES / 2, vb + (size_t)r0 * DH, bytes, bar);
+  };
+  if (lane == 0) {
+    for (int s = 0; s < n_stages; ++s) mbar_init(smem_u32(&bars[warp][s]));
+    fence_mbar_init();
+    for (int i = 0; i < min(mine, n_stages); ++i) fetch(i);
+  }
+  __syncwarp();
 
   // lane element e of a row sits at column col(e) = (e / VEC * LPR + sub) * VEC + e % VEC
   float qr[GQM][EPL];
+  const float* qb = q + bk * ng * DH;
 #pragma unroll
   for (int g = 0; g < GQM; ++g)
 #pragma unroll
-    for (int e = 0; e < EPL; ++e)
-      qr[g][e] = qa_s[g][(e / VEC * LPR + sub) * VEC + e % VEC];
-
-  // ---- scores: s[g][p] = q[g] . k[p] * scale ------------------------------
-  // A warp step covers U * RPW consecutive rows; each lane group issues its
-  // U rows' loads before using any, so U loads per lane are in flight.
-  const float scale = 1.0f / sqrtf((float)DH);
-  const T* kb = k + (bk * S + start) * DH;
-  for (int p0 = warp * RPW * U; p0 < n; p0 += WARPS * RPW * U) {
-    uint4 raw[U][NV];
+    for (int t = 0; t < NV; ++t)
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int p = p0 + u * RPW + row;
-#pragma unroll
-      for (int t = 0; t < NV; ++t)
-        raw[u][t] = p < n ? load16(kb + (size_t)p * DH + (t * LPR + sub) * VEC) : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int p = p0 + u * RPW + row;
-      float kx[EPL];
-#pragma unroll
-      for (int t = 0; t < NV; ++t) widen(raw[u][t], kb, kx + t * VEC);
-      float dot[GQM];
-#pragma unroll
-      for (int g = 0; g < GQM; ++g) {
-        dot[g] = 0.f;
-        if (g < gq) {
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) dot[g] = fmaf(qr[g][e], kx[e], dot[g]);
-#pragma unroll
-          for (int off = LPR / 2; off > 0; off >>= 1) dot[g] += __shfl_xor_sync(FULL, dot[g], off);
-        }
+      for (int h = 0; h < VEC; h += 4) {
+        const float4 x = (!PAD || g < gq)
+            ? __ldg(reinterpret_cast<const float4*>(qb + g * DH + (t * LPR + sub) * VEC + h))
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+        qr[g][t * VEC + h] = x.x;
+        qr[g][t * VEC + h + 1] = x.y;
+        qr[g][t * VEC + h + 2] = x.z;
+        qr[g][t * VEC + h + 3] = x.w;
       }
-      if (p < n && sub == 0) {
-#pragma unroll
-        for (int g = 0; g < GQM; ++g)
-          if (g < gq) s_s[g][p] = dot[g] * scale;
-      }
-    }
-  }
-  __syncthreads();
 
-  // ---- chunk softmax: m = max_p s, s <- exp(s - m), l = sum_p s -----------
-  float x[GQM];
+  // scores are kept as log2-domain logits: s = q.k * log2(e) / sqrt(dh)
+  const float scale = LOG2E / sqrtf((float)DH);
+  float m_run[GQM], l_run[GQM], acc[GQM][EPL];
 #pragma unroll
   for (int g = 0; g < GQM; ++g) {
-    x[g] = (g < gq && tid < n) ? s_s[g][tid] : -INFINITY;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x[g] = fmaxf(x[g], __shfl_xor_sync(FULL, x[g], off));
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int g = 0; g < GQM; ++g) red_s[warp][g] = x[g];
-  }
-  __syncthreads();
-  if (tid < gq) {
-    float m = red_s[0][tid];
-    for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red_s[w][tid]);
-    m_s[tid] = m;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < GQM; ++g) {
-    x[g] = 0.f;
-    if (g < gq && tid < n) {
-      x[g] = expf(s_s[g][tid] - m_s[g]);
-      s_s[g][tid] = x[g];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x[g] += __shfl_xor_sync(FULL, x[g], off);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int g = 0; g < GQM; ++g) red_s[warp][g] = x[g];
-  }
-  __syncthreads();
-  const size_t part = bk * n_chunks + c;
-  if (tid < gq) {
-    float l = 0.f;
-    for (int w = 0; w < WARPS; ++w) l += red_s[w][tid];
-    part_m[part * gq + tid] = m_s[tid];
-    part_l[part * gq + tid] = l;
-  }
-
-  // ---- acc[g] = sum_p s[g][p] v[p] ----------------------------------------
-  float acc[GQM][EPL];
-#pragma unroll
-  for (int g = 0; g < GQM; ++g)
+    m_run[g] = -INFINITY;
+    l_run[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
-  const T* vb = v + (bk * S + start) * DH;
-  for (int p0 = warp * RPW * U; p0 < n; p0 += WARPS * RPW * U) {
-    uint4 raw[U][NV];
+  }
+
+  for (int i = 0; i < mine; ++i) {
+    const int stage = i % n_stages;
+    mbar_wait(smem_u32(&bars[warp][stage]), (i / n_stages) & 1);
+    const int rows = min(R, n - (warp + i * WARPS) * R);
+    const T* ks = reinterpret_cast<const T*>(ring + stage * STAGE_BYTES);
+    const T* vs = reinterpret_cast<const T*>(ring + stage * STAGE_BYTES + STAGE_BYTES / 2);
+
+    // partial dots: lane (rg, sub) holds q[g] . k[r] over its columns for
+    // the rows r = j * RPW + rg of the sub-tile
+    float pd[STEPS][GQM];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int p = p0 + u * RPW + row;
+    for (int j = 0; j < STEPS; ++j) {
+      float kx[EPL];
 #pragma unroll
       for (int t = 0; t < NV; ++t)
-        raw[u][t] = p < n ? load16(vb + (size_t)p * DH + (t * LPR + sub) * VEC) : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int p = p0 + u * RPW + row;
-      if (p < n) {
-        float vx[EPL];
-#pragma unroll
-        for (int t = 0; t < NV; ++t) widen(raw[u][t], vb, vx + t * VEC);
-#pragma unroll
-        for (int g = 0; g < GQM; ++g) {
-          if (g < gq) {
-            const float w = s_s[g][p];
-#pragma unroll
-            for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(w, vx[e], acc[g][e]);
-          }
-        }
-      }
-    }
-  }
-  // the warp's RPW row groups: lanes with equal `sub` hold the same columns
-#pragma unroll
-  for (int g = 0; g < GQM; ++g) {
-    if (g < gq) {
-#pragma unroll
-      for (int e = 0; e < EPL; ++e)
-#pragma unroll
-        for (int off = LPR; off < 32; off <<= 1) acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], off);
-    }
-  }
-  // the warps, in warp order, into qa_s (the queries are in registers now)
-  for (int w = 0; w < WARPS; ++w) {
-    if (warp == w && row == 0) {
+        widen(*reinterpret_cast<const uint4*>(ks + (j * RPW + rg) * DH + (t * LPR + sub) * VEC),
+              kx + t * VEC, ks);
 #pragma unroll
       for (int g = 0; g < GQM; ++g) {
-        if (g < gq) {
+        pd[j][g] = 0.f;
+        if (!PAD || g < gq) {
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) {
-            float& dst = qa_s[g][(e / VEC * LPR + sub) * VEC + e % VEC];
-            dst = (w == 0) ? acc[g][e] : dst + acc[g][e];
-          }
+          for (int e = 0; e < EPL; ++e) pd[j][g] = fmaf(qr[g][e], kx[e], pd[j][g]);
         }
       }
     }
-    __syncthreads();
-  }
-  float* pa = part_acc + part * gq * DH;
-  for (int i = tid; i < gq * DH; i += THREADS) pa[i] = qa_s[i / DH][i % DH];
-}
-
-// Pass 2: block (kv head, row b) combines the row's chunks in chunk order.
-__global__ void __launch_bounds__(128)
-decode_pass2(const int* __restrict__ lengths, int KV, int S, int gq, int dh,
-             int n_chunks, const float* __restrict__ part_m,
-             const float* __restrict__ part_l, const float* __restrict__ part_acc,
-             float* __restrict__ out) {
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int len = min(lengths[b], S);
-  const int nc = len > 0 ? (len + CHUNK - 1) / CHUNK : 0;
-  const size_t bk = (size_t)b * KV + kvh;
-  const size_t base = bk * n_chunks;
-  for (int i = threadIdx.x; i < gq * dh; i += blockDim.x) {
-    const int g = i / dh, d = i % dh;
-    float m = -INFINITY;
-    for (int c = 0; c < nc; ++c) m = fmaxf(m, part_m[(base + c) * gq + g]);
-    float l = 0.f, a = 0.f;
-    for (int c = 0; c < nc; ++c) {
-      const float e = expf(part_m[(base + c) * gq + g] - m);
-      l += part_l[(base + c) * gq + g] * e;
-      a += part_acc[((base + c) * gq + g) * dh + d] * e;
+    // reduce over the row's LPR lanes, transposed: at each of the first TL
+    // levels a lane keeps half of its rows and adds its partner's half of
+    // them, so the rows end up spread over the lanes (JF a lane) instead of
+    // every lane summing every row; plain levels finish the sums
+#pragma unroll
+    for (int lvl = 0; lvl < TL; ++lvl) {
+      const int off = LPR >> (lvl + 1), half = STEPS >> (lvl + 1);
+      const bool upper = sub & off;
+#pragma unroll
+      for (int j = 0; j < half; ++j)
+#pragma unroll
+        for (int g = 0; g < GQM; ++g) {
+          if (PAD && g >= gq) continue;
+          const float lo = pd[j][g], hi = pd[j + half][g];
+          pd[j][g] = (upper ? hi : lo) + __shfl_xor_sync(FULL, upper ? lo : hi, off);
+        }
     }
-    out[(bk * gq + g) * dh + d] = a / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int off = DUP / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < JF; ++j)
+#pragma unroll
+        for (int g = 0; g < GQM; ++g) pd[j][g] += __shfl_xor_sync(FULL, pd[j][g], off);
+
+    // online softmax over sub-tiles: the sub-tile's max over every lane,
+    // the running state rescaled once, one exp per (row, head); rows past
+    // the copied count get p = 0
+    const int j0 = (sub / DUP) * JF;                  // this lane's first row index
+    float mt[GQM];
+#pragma unroll
+    for (int g = 0; g < GQM; ++g) {
+      mt[g] = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < JF; ++j) {
+        pd[j][g] = (j0 + j) * RPW + rg < rows ? pd[j][g] * scale : -INFINITY;
+        mt[g] = fmaxf(mt[g], pd[j][g]);
+      }
+#pragma unroll
+      for (int off = DUP; off < 32; off <<= 1) mt[g] = fmaxf(mt[g], __shfl_xor_sync(FULL, mt[g], off));
+      const float m_new = fmaxf(m_run[g], mt[g]);
+      const float alpha = exp2f(m_run[g] - m_new);
+      m_run[g] = m_new;
+      l_run[g] *= alpha;
+      if (i > 0) {                     // acc is still 0 on the first sub-tile
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
+      }
+#pragma unroll
+      for (int j = 0; j < JF; ++j) {
+        pd[j][g] = exp2f(pd[j][g] - m_new);
+        l_run[g] += pd[j][g];
+      }
+    }
+    if (sub % DUP == 0) {
+#pragma unroll
+      for (int j = 0; j < JF; ++j)
+#pragma unroll
+        for (int g = 0; g < GQM; ++g) p_s[warp][(j0 + j) * RPW + rg][g] = pd[j][g];
+    }
+    __syncwarp();
+
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) {
+      const int r = j * RPW + rg;
+      if (r < rows) {
+        float vx[EPL], w[GP];
+#pragma unroll
+        for (int t = 0; t < NV; ++t)
+          widen(*reinterpret_cast<const uint4*>(vs + r * DH + (t * LPR + sub) * VEC),
+                vx + t * VEC, vs);
+#pragma unroll
+        for (int h = 0; h < GP; h += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(&p_s[warp][r][h]);
+          w[h] = x.x;
+          w[h + 1] = x.y;
+          w[h + 2] = x.z;
+          w[h + 3] = x.w;
+        }
+#pragma unroll
+        for (int g = 0; g < GQM; ++g)
+          if (!PAD || g < gq) {
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(w[g], vx[e], acc[g][e]);
+          }
+      }
+    }
+    __syncwarp();                      // every lane is done with this stage
+    if (lane == 0 && i + n_stages < mine) {
+      fence_proxy_async();
+      fetch(i + n_stages);
+    }
   }
+
+  // the warp's row groups: lanes with equal `sub` hold the same columns
+  // l: each lane summed its own rows, DUP lanes alike, so sum over the rest
+#pragma unroll
+  for (int g = 0; g < GQM; ++g) {
+#pragma unroll
+    for (int off = DUP; off < 32; off <<= 1) l_run[g] += __shfl_xor_sync(FULL, l_run[g], off);
+#pragma unroll
+    for (int off = LPR; off < 32; off <<= 1)
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], off);
+  }
+
+  // ---- end of chunk: the warps, in warp order, through shared memory ------
+  fence_proxy_async();
+  __syncthreads();                     // every ring is drained; reuse it
+  float* red_acc = reinterpret_cast<float*>(smem);   // [WARPS][GQM][DH]
+  float* red_m = red_acc + WARPS * GQM * DH;         // [WARPS][GQM]
+  float* red_l = red_m + WARPS * GQM;
+  if (rg == 0) {                       // a lane's columns come in runs of VEC
+#pragma unroll
+    for (int g = 0; g < GQM; ++g)
+#pragma unroll
+      for (int e = 0; e < EPL; e += 4)
+        *reinterpret_cast<float4*>(red_acc + (warp * GQM + g) * DH + (e / VEC * LPR + sub) * VEC +
+                                   e % VEC) =
+            make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2], acc[g][e + 3]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GQM; ++g) {
+      red_m[warp * GQM + g] = m_run[g];
+      red_l[warp * GQM + g] = l_run[g];
+    }
+  }
+  __syncthreads();
+  // one thread per head: the chunk's max, each warp's weight, the chunk's l
+  if (tid < ng) {
+    float m = red_m[tid];
+    for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red_m[w * GQM + tid]);
+    float l = 0.f;
+    for (int w = 0; w < WARPS; ++w) {        // a warp with no sub-tile has m = -inf
+      const float e = exp2f(red_m[w * GQM + tid] - m);
+      red_m[w * GQM + tid] = e;
+      l += red_l[w * GQM + tid] * e;
+    }
+    red_l[tid] = l;                          // warp 0's slot, read below
+    chunk_m[tid] = m;
+  }
+  __syncthreads();
+
+  const size_t rows_all = (size_t)B * KV * n_chunks;  // partials of the whole grid
+  float* part_m = part;
+  float* part_l = part + rows_all * ng;
+  float* part_acc = part + 2 * rows_all * ng;
+  const size_t pc = bk * n_chunks;                     // this row's first partial
+  for (int i = tid; i < ng * DH / 4; i += THREADS) {  // four columns a thread
+    const int g = i / (DH / 4), d = i % (DH / 4) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float e = red_m[w * GQM + g];
+      const float4 x = *reinterpret_cast<const float4*>(red_acc + (w * GQM + g) * DH + d);
+      a.x += x.x * e;
+      a.y += x.y * e;
+      a.z += x.z * e;
+      a.w += x.w * e;
+    }
+    if (nc == 1) {
+      const float l = fmaxf(red_l[g], 1e-30f);
+      reinterpret_cast<float4*>(outb)[i] = make_float4(a.x / l, a.y / l, a.z / l, a.w / l);
+    } else {
+      reinterpret_cast<float4*>(part_acc + (pc + c) * ng * DH)[i] = a;
+    }
+  }
+  if (nc > 1 && tid < ng) {
+    part_m[(pc + c) * ng + tid] = chunk_m[tid];
+    part_l[(pc + c) * ng + tid] = red_l[tid];
+  }
+  if (nc == 1) return;
+
+  // ---- arrival: the row's last block combines its chunks in chunk order ---
+  // The barrier orders every thread's partial before thread 0's release;
+  // its acquire, then the barrier, orders the other chunks' partials before
+  // this block's reads of them.
+  __syncthreads();
+  if (tid == 0) is_last = arrive(counters + bk) == nc - 1;
+  __syncthreads();
+  if (!is_last) return;
+  constexpr int BATCH = 16;
+  const float4* acc4 = reinterpret_cast<const float4*>(part_acc + pc * ng * DH);
+  const size_t stride = (size_t)ng * DH / 4;           // one chunk's partial
+  // this thread's first BATCH chunks' loads go out now and land while the
+  // weights are made; loads are unconditional (a batch past the last chunk
+  // re-reads it), so the compiler keeps all BATCH in flight
+  float4 x[BATCH];
+  if (tid < ng * DH / 4) {
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) x[j] = __ldcg(acc4 + tid + min(j, nc - 1) * stride);
+  }
+  // per (chunk, head): m into shared memory, then its weight exp2(m - max);
+  // one thread per head takes the max and the l sum in chunk order
+  float* w_s = red_acc;                                // [nc][ng]
+  float* l_s = red_acc + MAX_CHUNKS * GQM;             // [nc][ng]
+  float* inv_s = l_s + MAX_CHUNKS * GQM;               // [ng]
+  for (int i = tid; i < nc * ng; i += THREADS) {
+    w_s[i] = __ldcg(part_m + pc * ng + i);
+    l_s[i] = __ldcg(part_l + pc * ng + i);
+  }
+  __syncthreads();
+  if (tid < ng) {
+    float m = -INFINITY, l = 0.f;
+#pragma unroll 8
+    for (int cc = 0; cc < nc; ++cc) m = fmaxf(m, w_s[cc * ng + tid]);
+#pragma unroll 8
+    for (int cc = 0; cc < nc; ++cc) {
+      const float e = exp2f(w_s[cc * ng + tid] - m);
+      w_s[cc * ng + tid] = e;
+      l += l_s[cc * ng + tid] * e;
+    }
+    inv_s[tid] = l;
+  }
+  __syncthreads();
+  // acc: four columns a thread, BATCH chunks at a time, summed in chunk order
+  for (int i = tid; i < ng * DH / 4; i += THREADS) {
+    const int g = i / (DH / 4);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c0 = 0; c0 < nc; c0 += BATCH) {
+      if (i != tid || c0 != 0) {
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) x[j] = __ldcg(acc4 + i + min(c0 + j, nc - 1) * stride);
+      }
+#pragma unroll
+      for (int j = 0; j < BATCH; ++j) {
+        if (c0 + j < nc) {
+          const float e = w_s[(c0 + j) * ng + g];
+          a.x += x[j].x * e;
+          a.y += x[j].y * e;
+          a.z += x[j].z * e;
+          a.w += x[j].w * e;
+        }
+      }
+    }
+    const float l = fmaxf(inv_s[g], 1e-30f);
+    reinterpret_cast<float4*>(outb)[i] = make_float4(a.x / l, a.y / l, a.z / l, a.w / l);
+  }
+  if (tid == 0) counters[bk] = 0;      // ready for the next call
 }
 
-template <typename T, int DH, int GQM>
-void launch_pass1(const float* q, const T* k, const T* v, const int* lengths, int B,
-                  int KV, int S, int gq, int n_chunks, float* pm, float* pl, float* pa,
-                  cudaStream_t stream) {
-  const dim3 grid(n_chunks, KV, B);
-  decode_pass1<T, DH, GQM><<<grid, THREADS, 0, stream>>>(q, k, v, lengths, KV, S, gq,
-                                                          n_chunks, pm, pl, pa);
+template <typename T, int DH, int GQM, bool PAD>
+int launch(const float* q, const T* k, const T* v, const int* lengths, int B, int KV, int S,
+           int gq, int chunk, int n_chunks, float* part, int* counters, float* out,
+           cudaStream_t stream) {
+  constexpr int R = sub_rows(DH, (int)sizeof(T));
+  const int passes = chunk / (WARPS * R);
+  const int n_stages = passes < MAX_STAGES ? passes : MAX_STAGES;
+  const size_t ring = (size_t)WARPS * n_stages * STAGE_BYTES;
+  const size_t red_warps = (size_t)WARPS * GQM * DH + 2 * WARPS * GQM;
+  const size_t red_chunks = (size_t)2 * MAX_CHUNKS * GQM + GQM;
+  const size_t red = (red_warps > red_chunks ? red_warps : red_chunks) * sizeof(float);
+  const size_t smem = ring > red ? ring : red;
+  auto kernel = decode_attention_kernel<T, DH, GQM, PAD>;
+  static size_t allowed = 48 * 1024;   // dynamic shared memory allowed so far
+  if (smem > allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed = smem;
+  }
+  kernel<<<dim3(n_chunks, KV, B), THREADS, smem, stream>>>(
+      q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, n_stages, part, counters, out);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int DH>
-void launch_gq(const float* q, const T* k, const T* v, const int* lengths, int B, int KV,
-               int S, int gq, int n_chunks, float* pm, float* pl, float* pa,
-               cudaStream_t stream) {
-  if (gq <= 4)
-    launch_pass1<T, DH, 4>(q, k, v, lengths, B, KV, S, gq, n_chunks, pm, pl, pa, stream);
-  else if (gq <= 8)
-    launch_pass1<T, DH, 8>(q, k, v, lengths, B, KV, S, gq, n_chunks, pm, pl, pa, stream);
-  else
-    launch_pass1<T, DH, 16>(q, k, v, lengths, B, KV, S, gq, n_chunks, pm, pl, pa, stream);
+int launch_gq(const float* q, const T* k, const T* v, const int* lengths, int B, int KV, int S,
+              int gq, int chunk, int n_chunks, float* part, int* counters, float* out,
+              cudaStream_t st) {
+#define DECODE_LAUNCH(G, P) \
+  launch<T, DH, G, P>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, part, counters, out, st)
+  switch (gq) {
+    case 1: return DECODE_LAUNCH(1, false);
+    case 2: return DECODE_LAUNCH(2, false);
+    case 4: return DECODE_LAUNCH(4, false);
+    case 5: return DECODE_LAUNCH(5, false);
+    case 8: return DECODE_LAUNCH(8, false);
+    case 16: return DECODE_LAUNCH(16, false);
+    default: return gq < 8 ? DECODE_LAUNCH(8, true) : DECODE_LAUNCH(16, true);
+  }
+#undef DECODE_LAUNCH
 }
 
 template <typename T>
-int decode_attention(const float* q, const T* k, const T* v, const int* lengths, int B,
-                     int KV, int S, int gq, int dh, int n_chunks, float* pm, float* pl,
-                     float* pa, float* out, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (B < 1 || KV < 1 || S < 1 || gq < 1 || gq > 16 ||
-      n_chunks != (S + CHUNK - 1) / CHUNK)
+int decode_attention(const float* q, const T* k, const T* v, const int* lengths, int B, int KV,
+                     int S, int gq, int dh, int chunk, int n_chunks, float* part,
+                     int* counters, float* out, void* stream_ptr) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  if (B < 1 || B > 65535 || KV < 1 || KV > 65535 || S < 1 || gq < 1 || gq > 16 ||
+      (dh != 32 && dh != 64 && dh != 128 && dh != 256) ||
+      chunk != chunk_positions(S, dh, (int)sizeof(T)) || n_chunks != (S + chunk - 1) / chunk ||
+      n_chunks > MAX_CHUNKS)
     return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 32: launch_gq<T, 32>(q, k, v, lengths, B, KV, S, gq, n_chunks, pm, pl, pa, stream); break;
-    case 64: launch_gq<T, 64>(q, k, v, lengths, B, KV, S, gq, n_chunks, pm, pl, pa, stream); break;
-    case 128: launch_gq<T, 128>(q, k, v, lengths, B, KV, S, gq, n_chunks, pm, pl, pa, stream); break;
-    case 256: launch_gq<T, 256>(q, k, v, lengths, B, KV, S, gq, n_chunks, pm, pl, pa, stream); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 32: return launch_gq<T, 32>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, part, counters, out, st);
+    case 64: return launch_gq<T, 64>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, part, counters, out, st);
+    case 128: return launch_gq<T, 128>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, part, counters, out, st);
+    default: return launch_gq<T, 256>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, part, counters, out, st);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  decode_pass2<<<dim3(KV, B), 128, 0, stream>>>(lengths, KV, S, gq, dh, n_chunks, pm, pl,
-                                                 pa, out);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, KV, gq, dh) f32; k/v (B, KV, S, dh); lengths (B,) i32; scratch
-// part_m/part_l (B, KV, n_chunks, gq) and part_acc (B, KV, n_chunks, gq, dh)
-// f32; out (B, KV, gq, dh) f32.  All contiguous on one device.  Launches on
-// `stream` without synchronising; returns cudaGetLastError().
+// q (B, KV, gq, dh) f32; k/v (B, KV, S, dh), 16-byte aligned; lengths (B,)
+// i32; chunk = chunk_positions(S, dh, sizeof(elem)) and n_chunks =
+// ceil(S / chunk); part: 2 * B*KV*n_chunks*gq + B*KV*n_chunks*gq*dh f32;
+// counters (B, KV) i32, zero on entry and left zero; out (B, KV, gq, dh) f32.
+// All contiguous on one device.  Launches one kernel on `stream` without
+// synchronising; returns cudaGetLastError().
 extern "C" int decode_attention_f32(const float* q, const float* k, const float* v,
-                                    const int* lengths, int B, int KV, int S, int gq,
-                                    int dh, int n_chunks, float* part_m, float* part_l,
-                                    float* part_acc, float* out, void* stream) {
-  return decode_attention<float>(q, k, v, lengths, B, KV, S, gq, dh, n_chunks, part_m,
-                                 part_l, part_acc, out, stream);
+                                    const int* lengths, int B, int KV, int S, int gq, int dh,
+                                    int chunk, int n_chunks, float* part, int* counters,
+                                    float* out, void* stream) {
+  return decode_attention<float>(q, k, v, lengths, B, KV, S, gq, dh, chunk, n_chunks, part,
+                                 counters, out, stream);
 }
 
 extern "C" int decode_attention_bf16(const float* q, const void* k, const void* v,
-                                     const int* lengths, int B, int KV, int S, int gq,
-                                     int dh, int n_chunks, float* part_m, float* part_l,
-                                     float* part_acc, float* out, void* stream) {
+                                     const int* lengths, int B, int KV, int S, int gq, int dh,
+                                     int chunk, int n_chunks, float* part, int* counters,
+                                     float* out, void* stream) {
   return decode_attention<__nv_bfloat16>(
-      q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      lengths, B, KV, S, gq, dh, n_chunks, part_m, part_l, part_acc, out, stream);
+      q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), lengths,
+      B, KV, S, gq, dh, chunk, n_chunks, part, counters, out, stream);
 }

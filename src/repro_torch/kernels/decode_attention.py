@@ -3,8 +3,33 @@
 Port of the Pallas kernel ``repro/kernels/decode_attention.py::_kernel``.
 The kernel is CUDA C++ for ``sm_90a`` (``csrc/decode_attention.cu``), built
 with ``nvcc`` at first use and bound with :mod:`ctypes` by the shared
-loader in :mod:`.nvcc`.  The source explains the design (fixed position
-chunks in parallel, then an in-order combine) and its bound on the card.
+loader in :mod:`.nvcc`.
+
+What bounds it: the K/V bytes below each row's length (about 5 flop per
+byte at qwen3-14b's GQ = 5 in bf16, far below the H100's ridge), so the
+design is about bytes in flight per SM, idle SMs and each block's fixed
+cost.  One launch per call:
+
+* one block per (position chunk, kv head, row); a block past its row's
+  length exits at once, the others write the chunk's fp32 partial
+  (m, l, acc) and count in on a per-(row, kv head) counter; the last block
+  of a row combines its partials in chunk order and writes ``out``; a row of
+  one chunk writes ``out`` directly.  This replaced the first version's
+  second launch, whose B*KV blocks walked every chunk serially (0.3703 ms
+  against SDPA's 0.0618 ms at B=1, S=32768, bf16 [H100 80GB HBM3, 700 W]);
+* K and V reach shared memory by ``cp.async.bulk`` copies into a ring of
+  sub-tiles per warp, with an online softmax across sub-tiles, so the sweep
+  has no block barrier (the first version read K, then V, behind six
+  barriers); the q.k sums are reduced across lanes transposed, one exp per
+  (row, head);
+* the chunk size comes from :func:`chunk_positions` (S, dh and the element
+  size, never B or the lengths), so a row is bitwise the same alone or in
+  any batch; it leaves at least 17 chunks a row, enough blocks at B=1 to
+  fill the card from S = 2088 on at qwen3's 8 kv heads, and no more than 64;
+* per-head state at the exact group sizes 1, 2, 4, 5, 8, 16;
+* nothing allocated per call but ``out``: the workspace (partials and
+  counters) is cached per (device, stream, shape) and its counters are
+  zeroed once, at creation; the kernel leaves them zero.
 
 :func:`decode_attention_dispatch` is the one entry: tensors on the CPU take
 the plain PyTorch version (:func:`repro_torch.kernels.ref.decode_attention_ref`);
@@ -14,7 +39,9 @@ kernel launches and nothing else.
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
@@ -22,14 +49,21 @@ from .nvcc import CudaLibrary
 from .ref import decode_attention_ref
 
 __all__ = [
-    "CHUNK", "SUPPORTED_DH", "MAX_GQ", "SOURCE", "build_library", "launches",
-    "reset_launches", "check_contract", "decode_attention_cuda", "decode_attention_dispatch",
+    "WARPS", "SUPPORTED_DH", "MAX_GQ", "SOURCE", "sub_tile_rows", "chunk_positions",
+    "workspace_numel", "workspace", "build_library", "launches", "reset_launches",
+    "check_contract", "decode_attention_cuda", "decode_attention_dispatch",
 ]
 
-CHUNK = 256                   # positions per pass-1 block (must match the .cu)
+# the kernel's tiling; the .cu file holds the same constants
+WARPS = 4                     # warps per block, each with its own ring
+STAGE_BYTES = 8192            # K + V bytes of one sub-tile
+MIN_CHUNKS = 17               # chunks a row has at least, once S is over 16 passes
+LONG_CHUNKS = 32              # chunks a long row aims at
+MAX_PASSES = 16               # passes a chunk grows to before LONG_CHUNKS applies
 SUPPORTED_DH = (32, 64, 128, 256)
 MAX_GQ = 16
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
+WORKSPACES = 8                # cached workspaces, least recently used dropped
 
 launches = 0                  # kernel launches since the last reset_launches()
 
@@ -39,10 +73,64 @@ def reset_launches() -> None:
     launches = 0
 
 
+def sub_tile_rows(dh: int, elem: int) -> int:
+    """Rows of K (and of V) in one sub-tile: STAGE_BYTES of K and V."""
+    return STAGE_BYTES // (2 * dh * elem)
+
+
+def chunk_positions(s: int, dh: int, elem: int) -> int:
+    """Positions per block, in whole passes (one sub-tile per warp).  As
+    many passes as leave at least MIN_CHUNKS chunks (17 x qwen3's 8 kv
+    heads = 136 blocks >= the H100's 132 SMs at B=1), up to MAX_PASSES;
+    past that, S / LONG_CHUNKS in whole passes, so a long row keeps about
+    32 chunks to spread over the SMs (never more than 64).  Short caches get few, large chunks, each block's
+    fixed cost (the copy's latency, the end-of-chunk reduction, the
+    arrival) shared by more bytes; long ones get many.  Depends on the
+    cache length S, the head width and the element size only, never on the
+    batch or the lengths, so a row splits the same way alone and in any
+    batch."""
+    one_pass = WARPS * sub_tile_rows(dh, elem)
+    few = (s - 1) // ((MIN_CHUNKS - 1) * one_pass)
+    cap = max(MAX_PASSES, s // (LONG_CHUNKS * one_pass))
+    return one_pass * max(1, min(few, cap))
+
+
+def workspace_numel(b: int, kv: int, gq: int, dh: int, n_chunks: int) -> Tuple[int, int]:
+    """(fp32 partials, int32 counters): m and l per (row, kv head, chunk,
+    head), acc per (row, kv head, chunk, head, column); one counter per
+    (row, kv head)."""
+    rows = b * kv * n_chunks * gq
+    return 2 * rows + rows * dh, b * kv
+
+
+_WORKSPACE: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = OrderedDict()
+
+
+def workspace(device: torch.device, stream: int, b: int, kv: int, gq: int, dh: int,
+              n_chunks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cached (partials, counters) for one shape on one stream.  The
+    counters are zeroed here, once; the kernel leaves them zero.  Two calls
+    running at once on different streams must not share a workspace, hence
+    the stream in the key.  A dropped entry's memory goes back to PyTorch's
+    stream-ordered allocator, so work still queued on the stream keeps it."""
+    key = (device, stream, b, kv, gq, dh, n_chunks)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        n_part, n_count = workspace_numel(b, kv, gq, dh, n_chunks)
+        ws = (torch.empty(n_part, dtype=torch.float32, device=device),
+              torch.zeros(n_count, dtype=torch.int32, device=device))
+        _WORKSPACE[key] = ws
+        while len(_WORKSPACE) > WORKSPACES:
+            _WORKSPACE.popitem(last=False)
+    else:
+        _WORKSPACE.move_to_end(key)
+    return ws
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.decode_attention_f32, lib.decode_attention_bf16):
-        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp, vp, vp]
+        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp, vp, vp, vp]
         fn.restype = i32
 
 
@@ -79,8 +167,10 @@ def decode_attention_cuda(
     v_cache: torch.Tensor,  # (B, KV, S, dh), k_cache's type
     length: torch.Tensor,   # (B,) int32, 1 <= length[b] <= S
 ) -> torch.Tensor:
-    """Launch the kernel on the current stream (no synchronisation); returns
-    (B, KV, GQ, dh) f32.  Positions >= ``length[b]`` are never read."""
+    """Launch the kernel, once, on the current stream (no synchronisation);
+    returns (B, KV, GQ, dh) f32.  Positions >= ``length[b]`` are never
+    read.  Allocates ``out`` and nothing else once the workspace for this
+    shape and stream is cached."""
     global launches
     check_contract(q, k_cache, v_cache, length)
     dev = q.device
@@ -99,16 +189,15 @@ def decode_attention_cuda(
     b, kv, gq, dh = q.shape
     s = k_cache.shape[2]
     lib = _LIB.get()
-    n_chunks = -(-s // CHUNK)
-    part_m = torch.empty((b, kv, n_chunks, gq), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, kv, n_chunks, gq, dh), dtype=torch.float32, device=dev)
+    chunk = chunk_positions(s, dh, k_cache.element_size())
+    n_chunks = -(-s // chunk)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part, counters = workspace(dev, stream, b, kv, gq, dh, n_chunks)
     out = torch.empty((b, kv, gq, dh), dtype=torch.float32, device=dev)
     fn = lib.decode_attention_bf16 if k_cache.dtype == torch.bfloat16 else lib.decode_attention_f32
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(),
-             b, kv, s, gq, dh, n_chunks, part_m.data_ptr(), part_l.data_ptr(),
-             part_acc.data_ptr(), out.data_ptr(), stream)
+             b, kv, s, gq, dh, chunk, n_chunks, part.data_ptr(), counters.data_ptr(),
+             out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
     launches += 1

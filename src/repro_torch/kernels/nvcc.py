@@ -20,8 +20,10 @@ from typing import Callable, Optional
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "CudaLibrary"]
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# --split-compile=0 optimises a source's kernels in parallel on every core
+# (the decode kernel's 64 instantiations build in ~35 s instead of ~90 s)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:

@@ -7,8 +7,13 @@ the kernel's plain PyTorch version.  Tolerance: rtol = atol = 2e-4, the
 reference's band (``tests/test_kernels.py``); 1e-4 for length 1, where the
 output is the first value row.  The CUDA kernel itself runs only on a card
 (``test_cuda_kernel_matches_plain``, skipped here; ``chip_smoke.py`` drives
-it at the serving path's shapes).
+it at the serving path's shapes).  ``_emulate`` repeats the kernel's
+arithmetic in plain PyTorch (chunks from the wrapper's rule, warps over
+sub-tiles with an online softmax, warps then chunks combined in order) and
+is held to the same band.
 """
+import inspect
+import math
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -19,6 +24,8 @@ import torch
 from repro.kernels import decode_attention as jax_decode_attention
 from repro.kernels import decode_attention_ref as jax_decode_attention_ref
 from repro_torch.kernels import decode_attention, decode_attention_ref, ops
+from repro_torch.kernels.decode_attention import (WARPS, chunk_positions, sub_tile_rows,
+                                                  workspace, workspace_numel)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -163,3 +170,141 @@ def test_cuda_kernel_matches_plain():
         length = torch.tensor([1, 256, 1000, 2088], dtype=torch.int32, device=dev)
         torch.testing.assert_close(decode_attention(qt, kt, vt, length),
                                    decode_attention_ref(qt, kt, vt, length), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's decomposition, emulated on the CPU
+# ---------------------------------------------------------------------------
+def _merge(states):
+    """(m, l, acc) partials in log2 units combined in list order, as the
+    kernel combines warps, then chunks."""
+    m = torch.stack([st[0] for st in states]).amax(0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(states[0][2])
+    for mi, li, ai in states:
+        e = torch.exp2(mi - m)
+        l = l + li * e
+        acc = acc + ai * e[..., None]
+    return m, l, acc
+
+
+def _emulate(q, k_cache, v_cache, length):
+    """The kernel's arithmetic: chunks of ``chunk_positions`` positions;
+    in each, warp w takes sub-tiles w, w + WARPS, ... of ``sub_tile_rows``
+    rows with an online softmax across them; warps and then chunks are
+    combined in order.  Positions past a length are never touched."""
+    elem = k_cache.element_size()
+    q, k, v = q.float(), k_cache.float(), v_cache.float()
+    b, kv, gq, dh = q.shape
+    s = k.shape[2]
+    chunk, rows = chunk_positions(s, dh, elem), sub_tile_rows(dh, elem)
+    scale = math.log2(math.e) / math.sqrt(dh)
+    out = torch.zeros((b, kv, gq, dh))
+    for bi in range(b):
+        n_len = min(int(length[bi]), s)
+        chunks = []
+        for start in range(0, n_len, chunk):
+            n = min(chunk, n_len - start)
+            warps = []
+            for w in range(WARPS):
+                m = torch.full((kv, gq), -math.inf)
+                l = torch.zeros((kv, gq))
+                acc = torch.zeros((kv, gq, dh))
+                for r0 in range(w * rows, n, WARPS * rows):
+                    sl = slice(start + r0, start + min(r0 + rows, n))
+                    sc = torch.einsum("kgd,krd->kgr", q[bi], k[bi, :, sl]) * scale
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp2(m - m_new)
+                    p = torch.exp2(sc - m_new[..., None])
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[..., None] + torch.einsum("kgr,krd->kgd", p, v[bi, :, sl])
+                    m = m_new
+                warps.append((m, l, acc))
+            chunks.append(_merge(warps))
+        _, l, acc = _merge(chunks)
+        out[bi] = acc / l.clamp_min(1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("gq,dh", [(5, 32), (5, 256), (16, 32), (16, 256)])
+def test_kernel_decomposition_matches_reference(gq, dh, dtype):
+    """Lengths 1, chunk - 1, chunk, chunk + 1 and S, at an S that is not a
+    multiple of the chunk, against the plain version and the JAX kernel."""
+    s = 700
+    _, q, k, v = _inputs(30 + gq + dh, 5, 2, gq, s, dh)
+    kt, vt = torch.as_tensor(k).to(dtype), torch.as_tensor(v).to(dtype)
+    chunk = chunk_positions(s, dh, kt.element_size())
+    assert s % chunk and 1 < chunk < s
+    length = np.array([1, chunk - 1, chunk, chunk + 1, s], np.int32)
+    emu = _emulate(torch.as_tensor(q), kt, vt, length).numpy()
+    port, ker, ref = _both(q, kt.float().numpy(), vt.float().numpy(), length)
+    np.testing.assert_allclose(emu, ref, **TOL)
+    np.testing.assert_allclose(emu, ker, **TOL)
+    np.testing.assert_allclose(emu, port, **TOL)
+
+
+def test_kernel_decomposition_qwen3_serving_shape():
+    """qwen3-14b's heads at the serving cache length (S = 2088, bf16): 33
+    chunks of 64 positions, one sub-tile a warp each."""
+    _, q, k, v = _inputs(31, 2, 8, 5, 2088, 128)
+    kt, vt = torch.as_tensor(k).to(torch.bfloat16), torch.as_tensor(v).to(torch.bfloat16)
+    length = torch.tensor([2088, 1000], dtype=torch.int32)
+    emu = _emulate(torch.as_tensor(q), kt, vt, length)
+    torch.testing.assert_close(emu, decode_attention_ref(torch.as_tensor(q), kt, vt, length),
+                               **TOL)
+
+
+def test_emulated_row_alone_equals_row_in_batch():
+    """The chunking never looks at the batch: a row alone is split, summed
+    and combined exactly as in the batch, so the emulation gives equal bits."""
+    _, q, k, v = _inputs(32, 4, 2, 5, 700, 128)
+    qt, kt, vt = map(torch.as_tensor, (q, k, v))
+    length = torch.tensor([700, 65, 1, 333], dtype=torch.int32)
+    batch = _emulate(qt, kt, vt, length)
+    for r in range(4):
+        alone = _emulate(qt[r:r + 1], kt[r:r + 1], vt[r:r + 1], length[r:r + 1])
+        assert torch.equal(alone[0], batch[r])
+
+
+# ---------------------------------------------------------------------------
+# the chunk-size rule and the workspace it sizes
+# ---------------------------------------------------------------------------
+def test_chunk_rule_takes_no_batch_or_lengths():
+    assert list(inspect.signature(chunk_positions).parameters) == ["s", "dh", "elem"]
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+def test_chunk_rule_tiles_whole_passes(dh, elem):
+    rows = sub_tile_rows(dh, elem)
+    assert rows * dh * elem * 2 == 8192 and (dh * elem) % 16 == 0 and dh * elem >= 64
+    for s in (1, 17, 700, 2088, 4096, 20_000, 32768, 100_003, 1 << 21):
+        chunk = chunk_positions(s, dh, elem)
+        n_chunks = -(-s // chunk)
+        assert chunk % (WARPS * rows) == 0
+        assert chunk == WARPS * rows or n_chunks >= 17
+        assert n_chunks <= 64          # the kernel's combine holds 64 chunks' weights
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "f32"])
+def test_chunk_rule_fills_the_card_at_b1(elem):
+    """qwen3-14b's 8 kv heads at B=1 give >= 132 live blocks (one per H100
+    SM) at every full-length S from 2088 on."""
+    for s in (2088, 2089, 3000, 4095, 4096, 8191, 16384, 32768, 65536, 131072):
+        assert 8 * -(-s // chunk_positions(s, 128, elem)) >= 132, s
+
+
+def test_workspace_sized_by_rule_and_cached():
+    b, kv, gq, dh, s = 3, 8, 5, 128, 2088
+    nc = -(-s // chunk_positions(s, dh, 2))
+    n_part, n_count = workspace_numel(b, kv, gq, dh, nc)
+    assert n_part == b * kv * nc * gq * (dh + 2) and n_count == b * kv
+    dev = torch.device("cpu")
+    part, counters = workspace(dev, 0, b, kv, gq, dh, nc)
+    assert part.numel() == n_part and part.dtype == torch.float32
+    assert counters.dtype == torch.int32 and not counters.any()
+    again = workspace(dev, 0, b, kv, gq, dh, nc)
+    assert again[0] is part and again[1] is counters
+    other_stream = workspace(dev, 1, b, kv, gq, dh, nc)
+    assert other_stream[0] is not part
