@@ -7,8 +7,11 @@ Phases, each printed as it runs:
   2. the build of every hand-written kernel from the sources in this
      checkout (one nvcc per source, started together);
   3. the masked L2 top-k against its plain PyTorch version on the card at
-     the ANN path's shapes, with its time, the plain version's, the library
-     yardstick's and the bound;
+     the ANN path's shapes (B from 1 to 256), with its path (streaming or
+     tiled), query tile and splits, its time, the plain version's, the
+     library yardstick's and the bound; a row alone (streaming) equals the
+     same row in a tiled batch of 64 or 256 bitwise, and repeated calls
+     are bitwise equal;
   3b. the flash-decode attention kernel likewise, at qwen3-14b's heads over
      B in {1, 8, 32} x S in {2088, 32768} x {bf16, f32} with ragged lengths,
      and at the reference tests' shapes, with the chunk size at each S; one
@@ -17,7 +20,9 @@ Phases, each printed as it runs:
      there);
   4. the filtered-ANN main path through its public entry points on the
      arxiv dataset at the paper's full size (2.14M x 384): build -> fit ->
-     query / batch_query -> ground_truth;
+     query / batch_query -> ground_truth; then 256 queries under one shared
+     predicate through the exact executors in one call, each row equal to
+     its query alone;
   6. LM serving: qwen3-14b at full width and depth in bf16 (random weights
      from a seed), 16 requests through ServeEngine in 8 slots; decode
      launches equal 40 x steps, the kernel equals its plain version on the
@@ -90,9 +95,10 @@ def device_ms(fn, reps: int, expect=None):
     and count under torch.profiler over reps warm calls.  Back-to-back event
     timing of a call whose device work is shorter than its host-side enqueue
     measures the enqueue; this does not.  The profiler now and then drops
-    kernel records, which only lowers the count (and the time): with
-    `expect` kernels per call given, a window that saw fewer is profiled
-    again, up to three times, and the last window is returned."""
+    kernel records, which only lowers the count (and the time): a window
+    that saw fewer than `expect` kernels per call (by default, none at
+    all) is profiled again, up to three times, and the last window is
+    returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -106,7 +112,7 @@ def device_ms(fn, reps: int, expect=None):
             torch.cuda.synchronize()
         ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         per_call = sum(e.count for e in ka) / reps
-        if expect is None or per_call >= expect:
+        if per_call >= (expect if expect is not None else 1 / reps):
             break
     busy = sum(e.self_device_time_total for e in ka)
     return busy / 1e3 / reps, per_call
@@ -170,10 +176,17 @@ def kernel_checks(n_full: int, d: int) -> dict:
     import torch
 
     from repro_torch.index.flat import l2_topk
+    from repro_torch.kernels import masked_l2
     from repro_torch.kernels.masked_l2 import BIG, masked_l2_topk_cuda
     from repro_torch.kernels.ref import masked_l2_topk_ref
 
     dev = torch.device("cuda")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = masked_l2.load_library()
+    for qt in (1, 8) + masked_l2.TILED_QT:      # the wrapper's plan mirrors the .cu
+        for k in (1, 10, 128):
+            check(lib.masked_l2_topk_smem(qt, d, k) == masked_l2.smem_bytes(qt, d, k),
+                  f"masked_l2_topk shared memory qt={qt} k={k}: .cu and plan differ")
     g = torch.Generator(device=dev).manual_seed(0)
     corpus = torch.randn((n_full, d), generator=g, device=dev)
     rows = {}
@@ -185,10 +198,11 @@ def kernel_checks(n_full: int, d: int) -> dict:
         mask = (torch.rand(n, generator=g, device=dev) < 0.5) if n == n_full \
             else torch.ones(n, dtype=torch.bool, device=dev)
         n_pass = int(mask.sum())
-        for b in (1, 8, 64, 256):
+        for b in ((1, 8, 16, 32, 64, 128, 256) if n == n_full else (1, 8, 64, 256)):
             q = torch.randn((b, d), generator=g, device=dev)
             pd, pi = masked_l2_topk_ref(q, x, mask, 128)
             for k in (1, 10, 128):
+                plan = masked_l2.plan(b, n, d, k, n_sms)
                 kd, ki = masked_l2_topk_cuda(q, x, mask, k)
                 torch.cuda.synchronize()
                 rd, ri = pd[:, :k], pi[:, :k]
@@ -196,47 +210,81 @@ def kernel_checks(n_full: int, d: int) -> dict:
                 close = torch.allclose(kd, rd, rtol=RTOL, atol=ATOL)
                 agree = float((ki == ri).float().mean())
                 check(close and agree > 0.95,
-                      f"masked_l2_topk B={b} N={n} k={k}: err {err} agree {agree}")
+                      f"masked_l2_topk B={b} N={n} k={k} ({plan.path}): err {err} agree {agree}")
                 max_err = max(max_err, err)
                 if k != 10 and not (k == 128 and n == 16):
                     continue
                 kk = min(k, n)
-                reps = 3 if n == n_full and b == 256 else 10
+                reps = 3 if n == n_full and b >= 128 else 10
                 ms = cuda_ms(lambda: masked_l2_topk_cuda(q, x, mask, k), reps)
                 plain = cuda_ms(lambda: masked_l2_topk_ref(q, x, mask, k), 2 if n == n_full else 5)
-                lib = cuda_ms(lambda: l2_topk(q, x, kk, mask), 2 if n == n_full else 5)
+                lib_ms = cuda_ms(lambda: l2_topk(q, x, kk, mask), 2 if n == n_full else 5)
                 bytes_ = 4 * b * d + n + 4 * n_pass * d + 8 * b * k
                 flops = 2 * b * n_pass * d + 2 * n_pass * d
                 bound = 1e3 * max(bytes_ / H100_BYTES_PER_S, flops / H100_FP32_FLOPS)
                 by = "bytes" if bytes_ / H100_BYTES_PER_S >= flops / H100_FP32_FLOPS else "operations"
-                rows[(b, n, k)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                                       bound_by=by, max_abs_err=err, agree=agree)
+                rows[(b, n, k)] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound,
+                                       bound_by=by, max_abs_err=err, agree=agree, path=plan.path,
+                                       qt=plan.qt, splits=plan.splits)
                 print(f"[kernel] masked_l2_topk B={b} N={n} d={d} k={k} pass={n_pass}: "
-                      f"kernel {ms:.4f} ms, plain {plain:.4f} ms, l2_topk {lib:.4f} ms, "
-                      f"bound {bound:.6g} ms ({by}), max_abs_err {err:.3g}, "
+                      f"{plan.path} path (QT {plan.qt}, {plan.splits} splits): "
+                      f"kernel {ms:.4f} ms, plain {plain:.4f} ms, l2_topk {lib_ms:.4f} ms, "
+                      f"bound {bound:.6g} ms ({by}), kernel / bound {ms / bound:.3f}, "
+                      f"kernel / l2_topk {ms / lib_ms:.3f}, max_abs_err {err:.3g}, "
                       f"id agreement {agree:.4f}", flush=True)
-    # all masked, padding never returned, ties, row independence
-    x = corpus[:4096]
-    q = torch.randn((8, d), generator=g, device=dev)
-    kd, ki = masked_l2_topk_cuda(q, x, torch.zeros(4096, dtype=torch.bool, device=dev), 10)
-    check(bool((ki == -1).all()) and bool((kd == BIG).all()), "all-masked case")
-    kd, ki = masked_l2_topk_cuda(q, x[:513], torch.ones(513, dtype=torch.bool, device=dev), 128)
-    check(bool((ki < 513).all()) and bool((ki >= 0).all()), "ragged tail rows")
-    dup = torch.cat([x[:2048], x[:2048]])            # row i and i+2048 tie
-    kd, ki = masked_l2_topk_cuda(q, dup, torch.ones(4096, dtype=torch.bool, device=dev), 10)
-    rd, ri = masked_l2_topk_ref(q, dup, torch.ones(4096, dtype=torch.bool, device=dev), 10)
-    check(torch.allclose(kd, rd, rtol=RTOL, atol=ATOL)
-          and bool((ki[:, 0::2] < 2048).all())
-          and torch.equal(ki[:, 1::2], ki[:, 0::2] + 2048)
-          and torch.equal(kd[:, 1::2], kd[:, 0::2]), "ties go to the lowest id")
-    mask = torch.rand(n_full, generator=g, device=dev) < 0.5
-    qb = torch.randn((64, d), generator=g, device=dev)
-    bd, bi = masked_l2_topk_cuda(qb, corpus, mask, 10)
-    for r in (0, 9, 37, 63):
-        sd, si = masked_l2_topk_cuda(qb[r:r + 1].clone(), corpus, mask, 10)
-        check(torch.equal(sd[0], bd[r]) and torch.equal(si[0], bi[r]),
-              f"row {r} alone differs from the same row in a batch of 64")
-    print("[kernel] all-masked, ragged tail, lowest-id ties, row independence: ok", flush=True)
+    # all masked, a ragged last tile, padding never returned, lowest-id ties,
+    # splits with no passing row: on the streaming path (B=8, a few
+    # thousand rows) and on the tiled one (B=256, more than TILED_MIN_N)
+    for b, n_e, n_r in ((8, 4096, 513), (256, 1 << 15, masked_l2.TILED_MIN_N + 129)):
+        x = corpus[:n_e]
+        q = torch.randn((b, d), generator=g, device=dev)
+        path = masked_l2.plan(b, n_e, d, 10, n_sms).path
+        check(path == ("streaming" if b == 8 else "tiled"), f"B={b} N={n_e} took the {path} path")
+        kd, ki = masked_l2_topk_cuda(q, x, torch.zeros(n_e, dtype=torch.bool, device=dev), 10)
+        check(bool((ki == -1).all()) and bool((kd == BIG).all()), f"all-masked case B={b}")
+        kd, ki = masked_l2_topk_cuda(q, x[:n_r], torch.ones(n_r, dtype=torch.bool, device=dev), 128)
+        rd, ri = masked_l2_topk_ref(q, x[:n_r], torch.ones(n_r, dtype=torch.bool, device=dev), 128)
+        check(bool((ki < n_r).all()) and bool((ki >= 0).all())
+              and float((ki == ri).float().mean()) > 0.95
+              and torch.allclose(kd, rd, rtol=RTOL, atol=ATOL), f"ragged tail rows B={b} N={n_r}")
+        half = n_e // 2
+        dup = torch.cat([x[:half], x[:half]])            # row i and i + half tie
+        ones = torch.ones(n_e, dtype=torch.bool, device=dev)
+        kd, ki = masked_l2_topk_cuda(q, dup, ones, 10)
+        rd, ri = masked_l2_topk_ref(q, dup, ones, 10)
+        check(torch.allclose(kd, rd, rtol=RTOL, atol=ATOL)
+              and bool((ki[:, 0::2] < half).all())
+              and torch.equal(ki[:, 1::2], ki[:, 0::2] + half)
+              and torch.equal(kd[:, 1::2], kd[:, 0::2]), f"ties go to the lowest id B={b}")
+        sparse = torch.zeros(n_e, dtype=torch.bool, device=dev)
+        sparse[n_e // 3: n_e // 3 + 300] = True           # most splits pass no row
+        kd, ki = masked_l2_topk_cuda(q, x, sparse, 10)
+        rd, ri = masked_l2_topk_ref(q, x, sparse, 10)
+        check(float((ki == ri).float().mean()) > 0.95 and bool((ki >= n_e // 3).all())
+              and bool((ki < n_e // 3 + 300).all()) and torch.allclose(kd, rd, rtol=RTOL, atol=ATOL),
+              f"sparse mask B={b}: splits with no passing row")
+    # row independence: a row alone (B=1, streaming) equals, bitwise, the
+    # same row in a batch of 64 or 256 (tiled); repeated calls are bitwise equal
+    for n, batch, picks in ((n_full, 64, (0, 9, 37, 63)), (n_full, 256, (0, 1, 100, 255)),
+                            (1 << 19, 256, (0, 1, 100, 255))):
+        mask = (torch.rand(n, generator=g, device=dev) < 0.5) if n == n_full \
+            else torch.ones(n, dtype=torch.bool, device=dev)
+        qb = torch.randn((batch, d), generator=g, device=dev)
+        bd, bi = masked_l2_topk_cuda(qb, corpus[:n], mask, 10)
+        path = masked_l2.plan(batch, n, d, 10, n_sms).path
+        for r in picks:
+            sd, si = masked_l2_topk_cuda(qb[r:r + 1].clone(), corpus[:n], mask, 10)
+            check(torch.equal(sd[0], bd[r]) and torch.equal(si[0], bi[r]),
+                  f"N={n}: row {r} alone differs from the same row in a batch of {batch} ({path})")
+        if batch == 256:
+            for _ in range(2):
+                ad, ai = masked_l2_topk_cuda(qb, corpus[:n], mask, 10)
+                check(torch.equal(ad, bd) and torch.equal(ai, bi),
+                      f"N={n}: a repeated B=256 call differs")
+    print("[kernel] all-masked, ragged tail, lowest-id ties, empty splits (streaming B=8 and "
+          "tiled B=256); row independence "
+          "(bitwise, B=1 against B=64 and 256 at N=2.14M, B=256 at N=2^19); repeated B=256 "
+          "calls bitwise equal: ok", flush=True)
     del corpus
     torch.cuda.empty_cache()
     return {"rows": rows, "max_abs_err": max_err}
@@ -357,9 +405,67 @@ def main_path(n_rows: int, n_train: int, n_serve: int, batch: int) -> dict:
     print(f"[main] host columnar mask: median {np.median(mask_s) * 1e3:.3f} ms of a pre "
           f"query's median {np.median(pre_s) * 1e3:.3f} ms (share {mask_share:.3f})")
     print(f"[main] kernel launches {launches}; dispatches {dispatch}", flush=True)
+    shared = shared_predicate_batch(eng, q_all, preds, k)
     where_time_goes(eng, qs, ps, served, k)
     return {"launches": launches, "post_recall": post_recall, "engine": eng, "ds": ds,
-            "preds": ps, "served": served}
+            "preds": ps, "served": served, "shared": shared}
+
+
+def shared_predicate_batch(eng, q_all, preds, k: int, n: int = 256) -> dict:
+    """Many queries under one predicate (a tenant or category filter over a
+    batch) through the exact executors: 256 of phase 4's query vectors in
+    one search() call, under the gen_queries predicate that passes the most
+    rows (over 25 %: the full-corpus branch) and one that passes about 10 %
+    (the gathered branch).  Each row must equal that query's B=1 search()
+    bitwise, and ground truth up to ties."""
+    import numpy as np
+    import torch
+
+    from repro_torch.index.flat import l2_topk
+    from repro_torch.kernels import ops
+
+    frac = np.array([p.eval(eng.cat, eng.num).mean() for p in preds])
+    full, below = int(np.argmax(frac)), np.flatnonzero(frac < eng.pre_exec.FULL_SCAN_FRAC)
+    gathered = int(below[np.argmin(np.abs(frac[below] - 0.1))])
+    check(frac[full] > eng.pre_exec.FULL_SCAN_FRAC,
+          f"no gen_queries predicate passes more than 25 % of the rows ({frac.max():.3f})")
+    qb = np.ascontiguousarray(q_all[:n])
+    vd = eng.vectors_dev
+    out = {}
+    for branch, i in (("full", full), ("gathered", gathered)):
+        mask = preds[i].eval(eng.cat, eng.num)
+        td, ti = l2_topk(torch.as_tensor(qb, device=vd.device), vd, k,
+                         torch.as_tensor(mask, device=vd.device))
+        td, ti = td.cpu().numpy(), ti.cpu().numpy()
+        for name, ex in (("pre", eng.pre_exec), ("ipre", eng.ipre_exec)):
+            ex.search(qb, preds[i], k)                      # warm: caches, allocator
+            ops.reset_kernel_launches()
+            t0 = time.perf_counter()
+            res = ex.search(qb, preds[i], k)
+            batch_s = time.perf_counter() - t0
+            l_batch = ops.kernel_launches()["masked_l2_topk"]
+            t0 = time.perf_counter()
+            solo = [ex.search(qb[j:j + 1], preds[i], k) for j in range(n)]
+            solo_s = time.perf_counter() - t0
+            l_solo = ops.kernel_launches()["masked_l2_topk"] - l_batch
+            check(l_batch == 1 and l_solo == n,
+                  f"{name}_exec {branch}: {l_batch} launches for the batch, {l_solo} for {n} queries")
+            for j in range(n):
+                check(np.array_equal(res.ids[j], solo[j].ids[0]),
+                      f"{name}_exec {branch} batch row {j}: {res.ids[j]} differs from the same "
+                      f"query alone {solo[j].ids[0]}")
+                check(same_up_to_ties(qb[j], res.ids[j:j + 1], res.dists[j:j + 1],
+                                      ti[j:j + 1], td[j:j + 1]),
+                      f"{name}_exec {branch} batch row {j} differs from ground truth")
+            out[(name, branch)] = dict(batch_ms=batch_s * 1e3 / n, solo_ms=solo_s * 1e3 / n,
+                                       pass_frac=float(frac[i]), launches=l_batch)
+            print(f"[main] shared predicate ({branch} branch: gen_queries[{i}] passes "
+                  f"{frac[i]:.4f}), {name}_exec, {n} queries: batched {batch_s * 1e3 / n:.4f} ms "
+                  f"per query ({l_batch} masked_l2_topk launch), one at a time "
+                  f"{solo_s * 1e3 / n:.4f} ms per query ({l_solo} launches); speedup "
+                  f"{solo_s / batch_s:.1f}x; every row equals its query alone (ids, bitwise) and "
+                  f"ground truth up to ties", flush=True)
+    return out
 
 
 def where_time_goes(eng, qs, ps, served, k: int, n: int = 40) -> None:
@@ -494,6 +600,8 @@ def decode_checks() -> dict:
         prof = {n: device_ms(f, 10, expect=1) if n == "kernel" else device_ms(f, 3)
                 for n, f in fns.items()}
         on_card = {n: p[0] for n, p in prof.items()}
+        check(all(v > 0 for v in on_card.values()),
+              f"decode_attention {tag}: torch.profiler saw no device time in three windows: {on_card}")
         per_call = prof["kernel"][1]
         check(per_call == 1, f"decode_attention {tag}: {per_call} CUDA kernels per call, not 1")
         bound, by = decode_bound(lengths, s, kv, gq, dh, k.element_size())
@@ -830,6 +938,7 @@ def main(argv=None) -> int:
     fp32_exactness()
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     head = kc["rows"][(1, 2_140_000, 10)]
+    b256 = kc["rows"][(256, 2_140_000, 10)]
     dhead = dc["rows"][(8, 2088, "bf16")]
     kernels = [{
         "name": "masked_l2_topk",
@@ -841,6 +950,8 @@ def main(argv=None) -> int:
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "shape": {"B": 1, "N": 2_140_000, "d": 384, "k": 10, "mask_pass": 0.5},
+        "ms_b256": b256["ms"], "library_ms_b256": b256["library_ms"],
+        "bound_ms_b256": b256["bound_ms"], "path_b256": b256["path"],
         "check": "ok",
     }, {
         "name": "decode_attention",
