@@ -13,11 +13,16 @@ nor ``repro``; it reads plain attributes and arrays):
   :func:`gbm_from_state`;
 * IVF centroids and assignment, which give the same ``sorted_ids`` /
   ``offsets`` layout -> :func:`ivf_from_assignment`;
+* an IVF-PQ index's layout (``centroids``, ``sorted_ids``, ``offsets``,
+  ``codebooks``, ``codes``, ``radius_sq``) and an ACORN graph
+  (``neighbors``, ``seeds``, ``entry``) -> :func:`ivfpq_state`,
+  :func:`acorn_state`, installed with ``IVFPQIndex.set_state`` /
+  ``AcornIndex.set_state``;
 * the LM's parameter tree (``Model.init(jax.random.PRNGKey(0))``) ->
   :func:`model_params_from_reference`, and the RAG server's projection ->
   :func:`retrieval_server`.
 
-:func:`install` puts the first three into a built engine.
+:func:`install` puts the first five into a built engine.
 """
 from __future__ import annotations
 
@@ -34,8 +39,8 @@ from .models.model import Model
 from .serve.retrieval import RetrievalAugmentedServer
 
 __all__ = ["gbm_state", "gbm_from_state", "planner_from_state",
-           "ivf_from_assignment", "install", "model_params_from_reference",
-           "retrieval_server"]
+           "ivf_from_assignment", "ivf_assignment", "ivfpq_state", "acorn_state",
+           "install", "model_params_from_reference", "retrieval_server"]
 
 _NODE_FIELDS = ("feature", "threshold", "left", "right", "value")
 
@@ -83,16 +88,66 @@ def ivf_from_assignment(vectors, centroids: np.ndarray, assignment: np.ndarray,
                           np.array(assignment, np.int64))
 
 
+def ivf_assignment(index) -> np.ndarray:
+    """Row -> list assignment (N,) of an IVF index's sorted layout (either
+    package's: ``sorted_ids`` and host ``offsets``)."""
+    sorted_ids = _array(index.sorted_ids)
+    assign = np.empty(sorted_ids.size, np.int64)
+    for lst in range(len(index.offsets) - 1):
+        assign[sorted_ids[index.offsets[lst]:index.offsets[lst + 1]]] = lst
+    return assign
+
+
+_PQ_FIELDS = ("centroids", "sorted_ids", "offsets", "codebooks", "codes", "radius_sq")
+
+
+def _array(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.array(x)
+
+
+def ivfpq_state(index) -> Dict[str, np.ndarray]:
+    """An IVF-PQ index's built layout (either package's) as numpy arrays."""
+    return {f: _array(getattr(index, f)) for f in _PQ_FIELDS}
+
+
+def acorn_state(index) -> Dict:
+    """An ACORN index's graph (either package's) as numpy arrays."""
+    return {"neighbors": _array(index.neighbors), "seeds": _array(index.seeds),
+            "entry": int(index.entry)}
+
+
 def install(engine, *, centroids: Optional[np.ndarray] = None,
             assignment: Optional[np.ndarray] = None,
-            gbm: Optional[Dict] = None, planner: Optional[Dict] = None):
+            gbm: Optional[Dict] = None, planner: Optional[Dict] = None,
+            backend_ivf: Optional[np.ndarray] = None,
+            ivfpq: Optional[Dict] = None, acorn: Optional[Dict] = None):
     """Put carried state into a built engine: the IVF layout (behind the
-    post-filter executor), the estimator's GBM and the planner head.  The
-    plan cache is emptied, as a refit would."""
+    post-filter executor), the estimator's GBM, the planner head (with its
+    routing head, if it has one), and into the engine's BackendSet the
+    ``ivf`` backend's layout (``backend_ivf``: centroids and assignment),
+    the ``ivfpq`` layout and the ``acorn`` graph.  An ``ivf`` backend that
+    shares the engine's IVF follows it, and gets a layout of its own only
+    when ``backend_ivf`` differs from the engine's.  The plan cache is
+    emptied, as a refit would."""
+    backends = engine.backend_set.backends if engine.backend_set is not None else {}
+    ivf_backend = backends.get("ivf")
+    shared = ivf_backend is not None and ivf_backend.index is engine.ivf
     if centroids is not None:
         engine.ivf = ivf_from_assignment(engine.vectors_dev, centroids, assignment,
                                          seed=engine.config.seed, device=engine.device)
         engine.post_exec.index = engine.ivf
+        if shared:
+            ivf_backend.index = engine.ivf
+    if backend_ivf is not None:
+        c, a = backend_ivf
+        same = (np.array_equal(_array(engine.ivf.centroids), np.asarray(c, np.float32))
+                and np.array_equal(ivf_assignment(engine.ivf), np.asarray(a, np.int64)))
+        ivf_backend.index = engine.ivf if same else ivf_from_assignment(
+            engine.vectors_dev, c, a, seed=engine.config.seed, device=engine.device)
+    if ivfpq is not None:
+        backends["ivfpq"].index.set_state(**ivfpq)
+    if acorn is not None:
+        backends["acorn"].index.set_state(**acorn)
     if gbm is not None:
         engine.estimator.model = gbm_from_state(gbm)
         engine.estimator.generation += 1

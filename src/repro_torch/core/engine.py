@@ -1,15 +1,22 @@
 """FilteredANNEngine — the public API tying the paper's pieces together.
 
-Port of ``repro/core/engine.py``, cut to the main path: query ->
-selectivity estimator -> core planner -> selected executor -> results.
-``build()`` puts the corpus (and the IVF index's list-sorted copy) on the
-device once and builds the masked top-k kernel before any timing;
-``fit()`` runs the paper's §3.1 training-data preparation; ``query`` /
-``batch_query`` serve; ``ground_truth`` is the exact oracle.
+Port of ``repro/core/engine.py``: query -> selectivity estimator -> core
+planner -> selected executor -> results.  ``build()`` puts the corpus (and
+the IVF index's list-sorted copy) on the device once and builds the masked
+top-k kernel before any timing; ``fit()`` runs the paper's §3.1
+training-data preparation; ``query`` / ``batch_query`` serve;
+``ground_truth`` is the exact oracle.
 
-Not in this slice, each raising ``NotImplementedError`` rather than
-answering wrongly: ``Or`` (DNF) predicates, ``EngineConfig.backends``
-(the backend registry and routing head) and the live-corpus mutations.
+``Or`` (DNF) predicates plan per disjunct: each unique conjunctive clause
+gets its own decision and routing class, runs as an ordinary decision-group
+row, and the clause lists merge with cross-clause de-duplication.  With
+``EngineConfig.backends``, ``build()`` also builds a
+:class:`~repro_torch.index.registry.BackendSet` on the engine's device,
+``fit()`` races every (backend, knob-tier) class and trains the planner's
+routing head, and post-filter rows the head routes run on that class.
+
+The live-corpus mutations (``upsert``, ``delete``, ``compact``) are not
+ported yet and raise ``NotImplementedError`` rather than answer wrongly.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..index.flat import l2_topk
 from ..index.ivf import IVFIndex
+from ..index.registry import BackendSet
 from .executors import (
     IndexedPreFilterExec,
     PostFilterExec,
@@ -35,12 +43,14 @@ from .plan import (
     ClausePlan,
     ExecutionPlan,
     NO_ROUTE,
+    collapse_clause_results,
     default_route_name,
+    expand_for_execution,
     format_plan,
 )
 from .planner import CorePlanner, PlannerFeatures, INDEXED_PRE, POST_FILTER, PRE_FILTER
 from .predicates import AnyPredicate, Or
-from .selectivity import SelectivityEstimator
+from .selectivity import SelEstimate, SelectivityEstimator
 from .stats import DatasetStats
 
 __all__ = ["FilteredANNEngine", "EngineConfig", "PlannedResult", "QueryResult",
@@ -59,10 +69,14 @@ class EngineConfig:
     range_buckets: int = 128           # filter.ranges.DEFAULT_BUCKETS
     pred_cache_size: int = 256         # compiled-predicate LRU entries
     plan_cache_size: int = 1024        # memoised (predicate, k) plan entries
-    # registered ANN backends: the registry is not ported yet, so only None
-    # (the plan-only engine) is accepted
+    # registered ANN backends to race and route over (repro_torch.index
+    # .registry names); None keeps the plan-only engine: no BackendSet, and
+    # the decision space stays (pre, post, ipre)
     backends: Optional[Tuple[str, ...]] = None
-    device: str = DEFAULT_DEVICE       # where the corpus, index and planner live
+    # recall@k a (backend, knob) class must reach on a training query before
+    # utility gets a say in its routing label; below it, max-recall wins
+    route_recall_target: float = 0.9
+    device: str = DEFAULT_DEVICE       # where the corpus, indexes and planner live
 
 
 def _not_in_slice(what: str) -> NotImplementedError:
@@ -93,7 +107,12 @@ QueryResult = PlannedResult
 
 @dataclasses.dataclass
 class QueryLabel:
-    """Outcome of one §3.1 utility race (see :meth:`label_query`)."""
+    """Outcome of one §3.1 utility race (see :meth:`label_query`).
+
+    ``route`` is the picked (backend, knob-tier) class when a BackendSet
+    was raced, else ``NO_ROUTE``; ``route_utils`` holds every class's
+    utility.  For DNF predicates ``clauses`` holds one label per unique
+    conjunctive disjunct, in first-occurrence order."""
 
     label: int                         # PRE_FILTER or POST_FILTER
     true_sel: float
@@ -101,6 +120,7 @@ class QueryLabel:
     u_post: float
     route: int = NO_ROUTE
     route_utils: Optional[np.ndarray] = None
+    clauses: Optional[Tuple["QueryLabel", ...]] = None
 
 
 def package_results(
@@ -133,12 +153,18 @@ def _execute_grouped(
     k: int,
     decisions: np.ndarray,
     ests: np.ndarray,
+    routes: Optional[np.ndarray] = None,
+    backend_set: Optional[BackendSet] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Decision-grouped batch execution.  The two pre-filter groups
     (scan-masked and bitmap-masked) evaluate each distinct predicate's mask
-    once and run one fused masked top-k over all queries sharing it; the
-    post-filter rows run one row-faithful batched IVF search.  Returns
-    ``(dists (B, k), ids (B, k), expansion_rounds (B,))``."""
+    once and run one fused masked top-k over all queries sharing it;
+    un-routed post-filter rows run one row-faithful batched IVF search.
+    With ``routes``/``backend_set``, post-filter rows carrying a routing
+    class >= 0 group by (class, predicate): each group evaluates its mask
+    once (through the bitmap index when it covers the predicate) and runs
+    one ``search_class`` on the routed backend.  Returns ``(dists (B, k),
+    ids (B, k), expansion_rounds (B,))``."""
     b = len(preds)
     out_d = np.full((b, k), np.inf, np.float32)
     out_i = np.full((b, k), -1, np.int32)
@@ -151,7 +177,9 @@ def _execute_grouped(
         for pred, rows in groups.items():
             res = ex.search(queries[rows], pred, k)
             out_d[rows], out_i[rows] = res.dists, res.ids
-    post_rows = [i for i in range(b) if decisions[i] == POST_FILTER]
+    routed = routes is not None and backend_set is not None
+    post_rows = [i for i in range(b)
+                 if decisions[i] == POST_FILTER and not (routed and routes[i] >= 0)]
     if post_rows:
         d, ids, rnd = post_exec.search_rows(
             queries[post_rows], [preds[i] for i in post_rows], k,
@@ -159,6 +187,18 @@ def _execute_grouped(
         )
         out_d[post_rows], out_i[post_rows] = d, ids
         rounds[post_rows] = rnd
+    if routed:
+        groups = {}
+        for i in range(b):
+            if decisions[i] == POST_FILTER and routes[i] >= 0:
+                groups.setdefault((int(routes[i]), preds[i]), []).append(i)
+        mask_ex = ipre_exec or pre_exec
+        masks: dict = {}
+        for (ci, pred), rows in groups.items():
+            if pred not in masks:
+                masks[pred] = mask_ex.candidate_mask(pred)
+            d, ids = backend_set.search_class(ci, queries[rows], masks[pred], k)
+            out_d[rows], out_i[rows] = d[:, :k], ids[:, :k]
     return out_d, out_i, rounds
 
 
@@ -221,8 +261,6 @@ class FilteredANNEngine:
         num: np.ndarray,
         config: EngineConfig = EngineConfig(),
     ):
-        if config.backends:
-            raise _not_in_slice("EngineConfig.backends (the backend registry)")
         self.device = resolve_device(config.device)
         self.vectors = np.ascontiguousarray(vectors, np.float32)
         self.cat, self.num = cat, num
@@ -256,6 +294,7 @@ class FilteredANNEngine:
         )
         self.planner = CorePlanner(seed=self.config.seed, device=self.device)
         self.feat = PlannerFeatures(self.dataset_stats)
+        self.backend_set: Optional[BackendSet] = None   # built by build()
         self.build_time_["stats"] = t1 - t0
         self.build_time_["attr_index"] = t2 - t1
         return self
@@ -280,12 +319,22 @@ class FilteredANNEngine:
             self.ivf, self.cat, self.num,
             alpha0=self.config.alpha0, nprobe0=self.config.nprobe0,
         )
+        t3 = time.perf_counter()
+        if self.config.backends:
+            # the flat backend shares the device corpus and the ivf backend
+            # the engine's IVF (same lists and seed); the others build their
+            # own indexes over the corpus
+            self.backend_set = BackendSet.build(
+                self.vectors_dev, self.config.backends, seed=self.config.seed,
+                device=self.device, ivf=self.ivf)
+            self.build_time_["backends"] = time.perf_counter() - t3
         # build the kernel and run every search path once before anything
         # is timed: the §3.1 labels are wall-clock races, and a first call
         # that compiles or initialises a library would mislabel its query
+        t4 = time.perf_counter()
         self._warm(self.config.default_k)
-        t3 = time.perf_counter()
-        self.build_time_.update({"upload": t1 - t0, "ivf": t2 - t1, "warmup": t3 - t2})
+        self.build_time_.update({"upload": t1 - t0, "ivf": t2 - t1,
+                                 "warmup": time.perf_counter() - t4})
         return self
 
     def _warm(self, k: int) -> None:
@@ -298,23 +347,69 @@ class FilteredANNEngine:
         self.pre_exec.search_masked(q, few, k)          # gathered-subset kernel
         self.ivf.search(q, k)
         self.ground_truth_masked(q, full, k)
+        if self.backend_set is not None:
+            for ci in range(len(self.backend_set.classes())):
+                self.backend_set.search_class(ci, q, few, k)
 
     # ------------------------------------------------------------------
     def label_query(self, q: np.ndarray, pred: AnyPredicate, k: int = 10) -> QueryLabel:
         """Paper §3.1 utility labelling: run BOTH strategies against the
-        exact masked top-k and pick the winner by U = recall@k / T_search."""
-        if isinstance(pred, Or):
-            raise _not_in_slice("DNF (Or) planning")
+        exact masked top-k and pick the winner by U = recall@k / T_search.
+
+        With a built BackendSet every (backend, knob-tier) class is raced
+        under the same rule (mask evaluation charged to each, as routed
+        execution pays it); the winner, the highest utility among classes
+        whose recall meets ``config.route_recall_target`` (max-recall when
+        none does), becomes the routing label, and its utility competes as
+        the post side's.  DNF predicates also race every unique conjunctive
+        disjunct on its own (``QueryLabel.clauses``)."""
         q = np.atleast_2d(q)
+        clauses = None
+        if isinstance(pred, Or):
+            clauses = tuple(self.label_query(q, t, k) for t in self._unique_terms(pred))
+        t_m0 = time.perf_counter()
         mask = pred.eval(self.cat, self.num)
+        t_mask = time.perf_counter() - t_m0
         true_sel = float(mask.mean())
         ti = self.ground_truth_masked(q, mask, k)
         r_pre = self.pre_exec.search(q, pred, k)
         r_post = self.post_exec.search(q, pred, k, est_selectivity=true_sel)
         u_pre = recall_at_k(r_pre.ids, ti) / max(r_pre.elapsed, 1e-7)
         u_post = recall_at_k(r_post.ids, ti) / max(r_post.elapsed, 1e-7)
+        route, route_utils = NO_ROUTE, None
+        if self.backend_set is not None:
+            n_c = len(self.backend_set.classes())
+            route_utils = np.zeros(n_c, np.float64)
+            recalls = np.zeros(n_c, np.float64)
+            for ci in range(n_c):
+                t0 = time.perf_counter()
+                _, ids = self.backend_set.search_class(ci, q, mask, k)
+                dt = time.perf_counter() - t0 + t_mask
+                recalls[ci] = recall_at_k(ids, ti)
+                route_utils[ci] = recalls[ci] / max(dt, 1e-7)
+            # constrained pick: utility decides only among classes meeting
+            # the recall target, so wall-clock noise cannot route to a fast
+            # low-recall tier
+            ok = recalls >= self.config.route_recall_target
+            if ok.any():
+                route = int(np.argmax(np.where(ok, route_utils, -1.0)))
+            else:
+                route = int(np.argmax(recalls + 1e-9 * route_utils))
+            u_post = max(u_post, float(route_utils[route]))
         label = PRE_FILTER if u_pre >= u_post else POST_FILTER
-        return QueryLabel(label, true_sel, u_pre, u_post)
+        return QueryLabel(label, true_sel, u_pre, u_post, route, route_utils,
+                          clauses=clauses)
+
+    def _unique_terms(self, pred: Or) -> List[AnyPredicate]:
+        """An ``Or``'s terms without repeats (by canonical key), in
+        first-occurrence order: the clauses its plan and labels hold."""
+        seen, out = set(), []
+        for t in pred.terms:
+            key = self._plan_key(t)
+            if key not in seen:
+                seen.add(key)
+                out.append(t)
+        return out
 
     def fit(
         self,
@@ -324,24 +419,40 @@ class FilteredANNEngine:
         verbose: bool = False,
     ) -> "FilteredANNEngine":
         """Paper §3.1: execute both strategies per training query, label by
-        utility U = recall@k / T_search, train estimator GBM + planner MLP."""
+        utility U = recall@k / T_search, train estimator GBM + planner MLP
+        (and the routing head, with a BackendSet).
+
+        The heads only decide conjunctions (an ``Or`` plans per disjunct),
+        so an ``Or`` adds one training row per unique disjunct, labelled by
+        that disjunct's own race.  ``labels_`` / ``route_labels_`` keep the
+        rows' labels."""
         t0 = time.perf_counter()
-        labels, true_sels = [], []
+        fit_preds, labels, true_sels, route_labels = [], [], [], []
         for q, pred in zip(train_queries, train_preds):
             lab = self.label_query(q, pred, k)
             if verbose:
                 print(f"  {pred}: sel={lab.true_sel:.4f} "
                       f"U_pre={lab.u_pre:.1f} U_post={lab.u_post:.1f}")
-            labels.append(lab.label)
-            true_sels.append(lab.true_sel)
+            rows = (zip(self._unique_terms(pred), lab.clauses) if lab.clauses
+                    else [(pred, lab)])
+            for p, cl in rows:
+                fit_preds.append(p)
+                labels.append(cl.label)
+                true_sels.append(cl.true_sel)
+                route_labels.append(cl.route)
         self.labels_ = np.asarray(labels)
-        self.estimator.fit(list(train_preds), true_sels)
+        self.route_labels_ = np.asarray(route_labels)
+        self.estimator.fit(fit_preds, true_sels)
         # re-extract features with the trained estimator so train/test match
         feats = []
-        for p in train_preds:
+        for p in fit_preds:
             se = self.estimator.estimate(p)
             feats.append(self.feat.vector(p, se.sel, k, se.is_exact))
         self.planner.fit(np.stack(feats), self.labels_)
+        if self.backend_set is not None:
+            # routing head on the same features: picked-class labels
+            self.planner.fit_routing(np.stack(feats), self.route_labels_,
+                                     self.backend_set.class_names())
         # estimator AND head both changed: memoised plans are stale
         self.plan_cache.clear()
         self.planner_version += 1
@@ -366,10 +477,10 @@ class FilteredANNEngine:
                 self.estimator.generation)
 
     def make_plan(self, pred: AnyPredicate, k: int = 10) -> Tuple[ExecutionPlan, float]:
-        """Plan one predicate without executing; repeat predicates hit the
-        plan cache.  Returns ``(plan, plan_overhead_s)``."""
-        if isinstance(pred, Or):
-            raise _not_in_slice("DNF (Or) planning")
+        """Plan one predicate without executing: a single-clause plan for a
+        conjunction, a per-disjunct ``"union"`` plan for an ``Or``.  Repeat
+        predicates (permuted ``Or`` terms included) hit the plan cache.
+        Returns ``(plan, plan_overhead_s)``."""
         t0 = time.perf_counter()
         self.plan_cache.validate_epoch(self._plan_epoch())
         key = (self._plan_key(pred), int(k))
@@ -383,35 +494,91 @@ class FilteredANNEngine:
         plan, _ = self.make_plan(pred, k)
         return format_plan(plan, pred)
 
-    def _fallback_decisions(self, ests: np.ndarray, exact: np.ndarray) -> np.ndarray:
-        """Untrained planner: the selectivity threshold picks pre vs post,
-        coverage upgrades pre to the indexed variant."""
-        d = np.where(ests < 0.05, PRE_FILTER, POST_FILTER)
-        return np.where((d == PRE_FILTER) & exact, INDEXED_PRE, d).astype(np.int32)
+    def _routing_active(self) -> bool:
+        """Routing applies only when the routing head was fitted over
+        exactly this engine's (backend, knob-tier) classes; a head trained
+        under another roster is ignored, not misapplied."""
+        return (self.backend_set is not None
+                and self.planner.route_classes == self.backend_set.class_names())
 
-    def _single_plan(self, pred, est: float, exact: bool, decision: int) -> ExecutionPlan:
-        bk, knob = default_route_name(decision)
-        cl = ClausePlan(self._plan_key(pred), int(decision), bk, knob,
-                        float(est), NO_ROUTE, bool(exact))
-        return ExecutionPlan((cl,), float(est), bool(exact), "none")
+    def _route_pair(self, decision: int, route: int) -> Tuple[str, str]:
+        """The (backend, knob) class a (decision, route) pair executes on:
+        routed post rows name their BackendSet class, every other row the
+        default class of its decision."""
+        if decision == POST_FILTER and route >= 0 and self.backend_set is not None:
+            return self.backend_set.classes()[route]
+        return default_route_name(decision)
+
+    def _decide_clauses(self, preds: Sequence, ests: np.ndarray,
+                        exact: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """One feature matrix and one planner dispatch over conjunction
+        rows: per-row ``(decisions, routes)``.  Untrained, the selectivity
+        threshold picks pre vs post and coverage upgrades pre to the indexed
+        variant."""
+        fm = self.feat.matrix(list(preds), ests, k, exact)
+        if self.planner.params is not None:
+            decisions = self.planner.decide(fm).astype(np.int32)
+        else:
+            decisions = np.where(ests < 0.05, PRE_FILTER, POST_FILTER)
+            decisions = np.where((decisions == PRE_FILTER) & exact, INDEXED_PRE,
+                                 decisions).astype(np.int32)
+        routes = np.full(len(preds), NO_ROUTE, np.int32)
+        if self._routing_active():
+            r = self.planner.route(fm)
+            if r is not None:
+                routes = np.where(decisions == POST_FILTER, r, NO_ROUTE).astype(np.int32)
+        return decisions, routes
+
+    def _clause_plan(self, pred, est: float, exact: bool, decision: int,
+                     route: int) -> ClausePlan:
+        bk, knob = self._route_pair(decision, route)
+        return ClausePlan(self._plan_key(pred), int(decision), bk, knob,
+                          float(est), int(route), bool(exact))
+
+    def _plan_rows(self, preds: Sequence[AnyPredicate],
+                   ses: Sequence[SelEstimate], k: int) -> List[ExecutionPlan]:
+        """Plans for predicates with their estimates: every conjunction and
+        every unique clause of every ``Or`` pooled into one head dispatch."""
+        rows, owner = [], []                      # (pred, est, exact), plan slot
+        for j, (p, se) in enumerate(zip(preds, ses)):
+            if isinstance(p, Or):
+                seen = set()
+                for t, ce in zip(p.terms, se.per_clause):
+                    key = self._plan_key(t)
+                    if key not in seen:
+                        seen.add(key)
+                        rows.append((t, ce.sel, ce.is_exact))
+                        owner.append(j)
+            else:
+                rows.append((p, se.sel, se.is_exact))
+                owner.append(j)
+        decisions = routes = np.zeros(0, np.int32)
+        if rows:
+            decisions, routes = self._decide_clauses(
+                [r[0] for r in rows], np.asarray([r[1] for r in rows], np.float64),
+                np.asarray([r[2] for r in rows], bool), k)
+        clauses: List[List[ClausePlan]] = [[] for _ in preds]
+        for r, j in enumerate(owner):
+            clauses[j].append(self._clause_plan(*rows[r], int(decisions[r]), int(routes[r])))
+        plans = []
+        for p, se, cl in zip(preds, ses, clauses):
+            if not isinstance(p, Or):
+                plans.append(ExecutionPlan(tuple(cl), float(se.sel), bool(se.is_exact)))
+            elif cl:
+                plans.append(ExecutionPlan(tuple(cl), float(se.sel), bool(se.is_exact), "union"))
+            else:                               # an empty Or matches nothing
+                plans.append(ExecutionPlan((), 0.0, True, "union"))
+        return plans
 
     def _plan_cold(self, pred: AnyPredicate, k: int) -> ExecutionPlan:
-        se = self.estimator.estimate(pred)
-        if self.planner.params is not None:
-            fv = self.feat.vector(pred, se.sel, k, se.is_exact)
-            decision = int(self.planner.decide(fv)[0])
-        else:
-            decision = int(self._fallback_decisions(
-                np.asarray([se.sel]), np.asarray([se.is_exact]))[0])
-        return self._single_plan(pred, se.sel, se.is_exact, decision)
+        return self._plan_rows([pred], [self.estimator.estimate(pred)], k)[0]
 
     def make_plan_batch(
         self, preds: Sequence[AnyPredicate], k: int = 10
     ) -> Tuple[List[ExecutionPlan], float]:
         """Batched :meth:`make_plan`: one selectivity pass and ONE planner
-        dispatch over the plan-cache misses.  Returns ``(plans, overhead)``."""
-        if any(isinstance(p, Or) for p in preds):
-            raise _not_in_slice("DNF (Or) planning")
+        dispatch over the plan-cache misses' conjunctions and DNF clauses.
+        Returns ``(plans, overhead)``."""
         t0 = time.perf_counter()
         self.plan_cache.validate_epoch(self._plan_epoch())
         plans: List[Optional[ExecutionPlan]] = [None] * len(preds)
@@ -425,17 +592,9 @@ class FilteredANNEngine:
                 plans[i] = hit
         if miss:
             sub = [preds[i] for i in miss]
-            ses = self.estimator.estimate_batch(sub)
-            ests = np.asarray([s.sel for s in ses], np.float64)
-            exact = np.asarray([s.is_exact for s in ses], bool)
-            if self.planner.params is not None:
-                decisions = self.planner.decide(
-                    self.feat.matrix(sub, ests, k, exact)).astype(np.int32)
-            else:
-                decisions = self._fallback_decisions(ests, exact)
-            for j, i in enumerate(miss):
-                plans[i] = self._single_plan(sub[j], ests[j], exact[j], int(decisions[j]))
-                self.plan_cache.put(keys[i], plans[i])
+            for i, plan in zip(miss, self._plan_rows(sub, self.estimator.estimate_batch(sub), k)):
+                plans[i] = plan
+                self.plan_cache.put(keys[i], plan)
         return plans, time.perf_counter() - t0
 
     # ------------------------------------------------------------------
@@ -443,17 +602,50 @@ class FilteredANNEngine:
         """Plan + execute one filtered ANN query."""
         q = np.atleast_2d(q)
         plan, plan_overhead = self.make_plan(pred, k)
-        decision = plan.decision
+        if plan.is_dnf:
+            return self._query_dnf(q, pred, k, plan, plan_overhead)
+        decision, route = plan.decision, plan.route
         if decision == INDEXED_PRE:
             res = self.ipre_exec.search(q, pred, k)
         elif decision == PRE_FILTER:
             res = self.pre_exec.search(q, pred, k)
+        elif route >= 0 and self.backend_set is not None:
+            # routed: mask once (bitmap-indexed when covered), then the
+            # chosen backend's masked search at the chosen knob tier
+            t0 = time.perf_counter()
+            mask = self.ipre_exec.candidate_mask(pred)
+            d, ids = self.backend_set.search_class(route, q, mask, k)
+            res = SearchResult(d, ids, time.perf_counter() - t0, "post")
         else:
             # the estimate also *parameterises* the post-filter executor
             res = self.post_exec.search(q, pred, k, est_selectivity=plan.est)
         res.backend, res.knob = plan.backend, plan.knob
         res.elapsed += plan_overhead   # end-to-end includes planning (paper §4.1)
         return PlannedResult(res, plan, plan_overhead)
+
+    def _execute(self, queries: np.ndarray, preds: Sequence[AnyPredicate], k: int,
+                 plans: Sequence[ExecutionPlan]):
+        """Run planned rows as clause rows through the grouped executor and
+        collapse DNF rows back: ``(dists, ids, rounds)``, one row each."""
+        exp_rows, exp_preds, decisions, ests, routes, row_map = (
+            expand_for_execution(preds, plans))
+        # no DNF row: the expansion is the identity
+        identity = len(exp_preds) == len(preds) and all(len(m) == 1 for m in row_map)
+        d, ids, rounds = _execute_grouped(
+            self.pre_exec, self.ipre_exec, self.post_exec,
+            queries if identity else queries[exp_rows], exp_preds, k, decisions, ests,
+            routes=routes, backend_set=self.backend_set,
+        )
+        return collapse_clause_results(d, ids, rounds, row_map, k)
+
+    def _query_dnf(self, q: np.ndarray, pred: AnyPredicate, k: int,
+                   plan: ExecutionPlan, plan_overhead: float) -> PlannedResult:
+        """One DNF query: its clauses run as decision-group rows, then merge
+        with cross-clause de-duplication."""
+        t0 = time.perf_counter()
+        d, ids, rounds = self._execute(q, [pred], k, [plan])
+        share = time.perf_counter() - t0 + plan_overhead
+        return package_results(d, ids, rounds, [plan], share, plan_overhead)[0]
 
     def batch_query(
         self, queries: np.ndarray, preds: Sequence[AnyPredicate], k: int = 10
@@ -465,13 +657,8 @@ class FilteredANNEngine:
         b = len(preds)
         plans, plan_overhead = self.make_plan_batch(preds, k)
         plan_share = plan_overhead / max(b, 1)
-        decisions = np.asarray([p.decision for p in plans], np.int32)
-        ests = np.asarray([p.est for p in plans], np.float64)
         t0 = time.perf_counter()
-        d, ids, rounds = _execute_grouped(
-            self.pre_exec, self.ipre_exec, self.post_exec,
-            queries, preds, k, decisions, ests,
-        )
+        d, ids, rounds = self._execute(queries, preds, k, plans)
         share = (time.perf_counter() - t0) / max(b, 1) + plan_share
         return package_results(d, ids, rounds, plans, share, plan_share)
 

@@ -66,6 +66,7 @@ TTHREADS, QG, MR, KC, STAGES, CAND = 512, 16, 8, 32, 2, 64
 TT = TTHREADS // QG * MR            # passing rows per tile
 XS, RING, TWARPS = KC + 4, 2 * TTHREADS, TTHREADS // 32
 WARPS = 8                           # streaming path: warps a block
+CPU_BLOCK, CPU_ROWS = 8, 1024   # queries x corpus rows per plain-version call on the CPU
 SOURCE = Path(__file__).resolve().parent / "csrc" / "masked_l2_topk.cu"
 
 launches = 0          # kernel launches since the last reset_launches()
@@ -196,13 +197,48 @@ def masked_l2_topk_cuda(
     return out_d, out_i
 
 
+def _plain_blocked(queries, corpus, mask, k):
+    b, dim = queries.shape
+    n = corpus.shape[0]
+    n_blk = max(1, -(-n // CPU_ROWS))
+    pad = n_blk * CPU_ROWS - n
+    x = torch.nn.functional.pad(corpus, (0, 0, 0, pad))
+    m = torch.nn.functional.pad(mask.to(torch.bool), (0, pad), value=False)
+    kb = min(k, CPU_ROWS)
+    qb = queries.new_zeros((CPU_BLOCK, dim))
+    out_d, out_i = [], []
+    for s in range(0, b, CPU_BLOCK):
+        e = min(b, s + CPU_BLOCK)
+        qb.zero_()
+        qb[: e - s] = queries[s:e]
+        parts = [masked_l2_topk_ref(qb, x[r : r + CPU_ROWS], m[r : r + CPU_ROWS], kb)
+                 for r in range(0, n_blk * CPU_ROWS, CPU_ROWS)]
+        cat_d = torch.cat([p[0] for p in parts], 1)
+        cat_i = torch.cat([torch.where(p[1] >= 0, p[1] + j * CPU_ROWS, -1)
+                           for j, p in enumerate(parts)], 1)
+        # stable: equal distances stay in row order (blocks ascend, and each
+        # block's list is in (distance, id) order)
+        vals, pos = torch.sort(cat_d, dim=1, stable=True)
+        out_d.append(vals[: e - s, :k])
+        out_i.append(torch.gather(cat_i, 1, pos)[: e - s, :k].to(torch.int32))
+    if not out_d:
+        return queries.new_zeros((0, k)), torch.zeros((0, k), dtype=torch.int32)
+    return torch.cat(out_d), torch.cat(out_i)
+
+
 def masked_l2_topk_dispatch(
     queries: torch.Tensor, corpus: torch.Tensor, mask: torch.Tensor, k: int,
     empty: float = BIG,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """CPU tensors -> the plain version; CUDA tensors -> the kernel."""
+    """CPU tensors -> the plain version; CUDA tensors -> the kernel.
+
+    On the CPU the plain version runs over fixed blocks of ``CPU_BLOCK``
+    queries (zero-padded) by ``CPU_ROWS`` corpus rows (masked padding), and
+    the blocks' lists merge in row order: BLAS rounds a product differently
+    at other shapes, and a (query, row) distance must not depend on the
+    batch, the corpus size or the row's position, as the kernel's do not."""
     if queries.device.type == "cpu":
-        d, i = masked_l2_topk_ref(queries, corpus, mask, k)
+        d, i = _plain_blocked(queries, corpus, mask, k)
         if empty != BIG:
             d = torch.where(i < 0, torch.full_like(d, empty), d)
         return d, i

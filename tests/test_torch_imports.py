@@ -45,7 +45,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
     assert not bad, bad
     for mod in ("repro_torch.core.engine", "repro_torch.configs", "repro_torch.models.model",
                 "repro_torch.serve.engine", "repro_torch.serve.retrieval",
-                "repro_torch.kernels.decode_attention", "torch"):
+                "repro_torch.kernels.decode_attention", "repro_torch.dist.collectives",
+                "repro_torch.index.pq", "repro_torch.index.acorn",
+                "repro_torch.index.registry", "torch"):
         assert mod in loaded, mod
 
 
