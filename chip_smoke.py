@@ -46,7 +46,26 @@ Phases, each printed as it runs:
      mask once (gated, every class), and ACORN's device search against its
      host search; then a routing head spanning all 8 classes serves 2 rows
      per class through query() and batch_query() (every backend's routed
-     groups, the same row checks); the engine is freed before phase 6;
+     groups, the same row checks); then the routed engine takes 2 % deletes
+     and 0.5 % upserts and serves those rows again (no tombstoned id, every
+     id passes its predicate once, flat:exact rows equal the live ground
+     truth); the engine is freed;
+  4d. the live corpus and sharded serving at the same size: a plain engine
+     with phase 4's planner, GBM and IVF layout carried, and a 4-shard
+     ShardedANNEngine over it on the one card (shards are views of its
+     device corpus); a 2 % segment (fresh rows, ids= replacements, exact
+     copies of base rows) and tombstones at 2, 5 and 10 % of the base rows
+     applied through the sharded engine; at each level phase 4's served
+     queries through query() and batch_query() on both engines: no
+     tombstoned id, every id passes its predicate once, exact rows equal the
+     live ground truth (bitwise) and an independent l2_topk truth (up to
+     ties), sharded exact rows equal the central ones bitwise, batch rows
+     equal query rows, each copy right after its base row; latency per plan
+     against phase 4's, plan mix, post recall and batch QPS printed; shard 2
+     stops beating, replan_mesh(3), reshard(3), exact rows again; both
+     engines compacted, exact rows equal the live ones through id_map and a
+     fresh build's, bitwise; upsert and delete rows/s, compaction s, peak
+     memory; everything is freed before phase 6;
   6. LM serving: qwen3-14b at full width and depth in bf16 (random weights
      from a seed), 16 requests through ServeEngine in 8 slots; decode
      launches equal 40 x steps, the kernel equals its plain version on the
@@ -60,9 +79,10 @@ Phases, each printed as it runs:
      result line {"ok": true, "device": {...}}.
 
 Each path's kernel launch counts are set to 0 just before it and read
-just after it (phases 4, 4b, 4c, 6, 7; 4c's routed serving and its
-spanning-head serving each); masked_l2_topk's launches in the kernels
-line are the sum over phases 4, 4b and 4c.  Any failed check raises, so the script
+just after it (phases 4, 4b, 4c, 4d, 6, 7; 4c's routed serving, its
+spanning-head serving and its live serving each; 4d as a whole, ground
+truth and rebuilds included); masked_l2_topk's launches in the kernels
+line are the sum over phases 4, 4b, 4c and 4d.  Any failed check raises, so the script
 exits non-zero and prints no result.  It needs a CUDA card and the repo's
 ``src/`` beside it, and imports nothing of the JAX package.
 """
@@ -437,7 +457,8 @@ def main_path(n_rows: int, n_train: int, n_serve: int, batch: int) -> dict:
     shared = shared_predicate_batch(eng, q_all, preds, k)
     where_time_goes(eng, qs, ps, served, k)
     return {"launches": launches, "post_recall": post_recall, "engine": eng, "ds": ds,
-            "preds": ps, "qs": qs, "train": (qt, pt), "served": served, "shared": shared}
+            "preds": ps, "qs": qs, "train": (qt, pt), "served": served, "shared": shared,
+            "pre_ms": float(np.median(pre_s) * 1e3)}
 
 
 def shared_predicate_batch(eng, q_all, preds, k: int, n: int = 256) -> dict:
@@ -500,17 +521,22 @@ def shared_predicate_batch(eng, q_all, preds, k: int, n: int = 256) -> dict:
 def where_time_goes(eng, qs, ps, served, k: int, n: int = 40) -> None:
     """Device busy time against host wall time for each plan's executor,
     over n warm queries under torch.profiler, and the top device kernels."""
-    import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    runs = {
+    profile_runs({
         "pre": lambda i: eng.pre_exec.search(qs[i:i + 1], ps[i], k),
         "ipre": lambda i: eng.ipre_exec.search(qs[i:i + 1], ps[i], k),
         "post": lambda i: eng.post_exec.search(qs[i:i + 1], ps[i], k,
                                                est_selectivity=served[i].plan.est),
-    }
+    }, n)
+
+
+def profile_runs(runs: dict, n: int, tag: str = "time") -> None:
+    """For each ``runs[name](i)``, i < n: device busy against host wall per
+    call under torch.profiler (after a warm pass), the idle share, and the
+    top device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for name, run in runs.items():
         for i in range(n):          # warm: predicate cache, allocator
             run(i)
@@ -525,10 +551,10 @@ def where_time_goes(eng, qs, ps, served, k: int, n: int = 40) -> None:
         ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in ka) / 1e3
         if busy <= 0:
-            print(f"[time] {name}: device time not measured (profiler saw none)")
+            print(f"[{tag}] {name}: device time not measured (profiler saw none)")
             continue
         top = sorted(ka, key=lambda e: -e.self_device_time_total)[:4]
-        print(f"[time] {name}: {n} queries, wall {wall / n:.3f} ms/query, device busy "
+        print(f"[{tag}] {name}: {n} queries, wall {wall / n:.3f} ms/query, device busy "
               f"{busy / n:.3f} ms/query, device idle share {1 - busy / wall:.3f}; top: "
               + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / n:.3f} ms"
                           for e in top), flush=True)
@@ -740,7 +766,7 @@ def spanning_routes(eng, qs, ps, k: int, per_class: int = 2) -> dict:
           f"{len(ps)} predicates) through query() and one batch_query(): every id passes its "
           f"predicate once, flat:exact rows equal ground truth up to ties, batch rows equal "
           f"query rows; kernel launches {launches}; dispatches {dispatches}", flush=True)
-    return {"launches": launches, "mix": mix}
+    return {"launches": launches, "mix": mix, "qs": sq, "preds": sp}
 
 
 def tiny_flat_check(k: int = 10) -> None:
@@ -874,8 +900,404 @@ def routed_phase(mp: dict, unions: list, k: int = 10, n_train: int = ROUTED_TRAI
           f"per query (mean)", flush=True)
     print(f"[routed] kernel launches {launches}; dispatches {ops.dispatch_counts()}", flush=True)
     span = spanning_routes(eng, qs, ps, k)
-    total = {nm: launches[nm] + span["launches"][nm] for nm in launches}
-    return {"launches": total, "recalls": recalls, "engine": eng}
+    live = routed_live(eng, span["qs"], span["preds"], k)
+    total = {nm: launches[nm] + span["launches"][nm] + live["launches"][nm] for nm in launches}
+    return {"launches": total, "recalls": recalls, "engine": eng, "live_launches": live["launches"]}
+
+
+# ----------------------------------------------------------------------
+# phase 4d: the live corpus and sharded serving at full size
+# ----------------------------------------------------------------------
+TOMBSTONE_FRACS = (0.02, 0.05, 0.10)   # benchmarks/mutation_bench.py's churn mix
+SEG_FRAC = 0.02
+
+
+def live_truth(eng, q, pred, k: int):
+    """Exact top-k over the LIVE rows, independent of the serving path:
+    ``l2_topk`` over the base rows (tombstones masked out) and over the
+    segment's device rows, merged base part first, with distances."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import merge_topk
+    from repro_torch.index.flat import l2_topk
+
+    live, vd = eng.live, eng.vectors_dev
+    alive = live.alive_mask()
+    qt = torch.as_tensor(np.atleast_2d(q), device=vd.device)
+    m = torch.as_tensor(pred.eval(eng.cat, eng.num) & alive[:live.base_n], device=vd.device)
+    d, i = (t.cpu().numpy() for t in l2_topk(qt, vd, k, m))
+    sm = pred.eval(live.seg_cat(), live.seg_num()) & alive[live.base_n:]
+    if sm.any():
+        sd, si = (t.cpu().numpy() for t in l2_topk(qt, live.seg_vectors_dev(), min(k, live.seg_n),
+                                                    torch.as_tensor(sm, device=vd.device)))
+        si = np.where(si >= 0, si + live.base_n, -1).astype(np.int32)
+        d, i = merge_topk(np.stack([d, np.pad(sd, ((0, 0), (0, k - sd.shape[1])),
+                                               constant_values=np.inf)]),
+                          np.stack([i, np.pad(si, ((0, 0), (0, k - si.shape[1])),
+                                              constant_values=-1)]), k)
+    return d, i
+
+
+def check_live_rows(eng, qs, preds, served, batched, k: int, tag: str, exact_of=None) -> dict:
+    """Rows served over a mutated corpus: no tombstoned id, every id passes
+    its predicate once, batch rows equal query rows bitwise, and rows that
+    ``exact_of`` selects equal the live ground_truth bitwise and the
+    independent live truth up to ties.  With ``exact_of``, returns recall@10
+    of the other rows against the live truth."""
+    import numpy as np
+
+    from repro_torch.core import recall_at_k
+
+    live = eng.live
+    recalls, n_exact = [], 0
+    for i, (r, br) in enumerate(zip(served, batched)):
+        ids = r.result.ids[0][r.result.ids[0] >= 0]
+        check(not live.is_deleted(ids).any(), f"{tag} {i}: a tombstoned id came back: {ids}")
+        c, m = live.row_attrs(ids)
+        check(r.result.ids.shape == (1, k) and bool(preds[i].eval(c, m).all()),
+              f"{tag} {i}: an id fails its predicate {preds[i]}")
+        check(len(set(ids.tolist())) == ids.size, f"{tag} {i}: an id came back twice: {ids}")
+        check(np.array_equal(r.result.ids, br.result.ids),
+              f"{tag} {i}: batch_query ids {br.result.ids} differ from query ids {r.result.ids}")
+        if exact_of is None:
+            continue
+        td, ti = live_truth(eng, qs[i], preds[i], k)
+        if exact_of(r):
+            n_exact += 1
+            gt = eng.ground_truth(qs[i], preds[i], k)
+            check(np.array_equal(r.result.ids, gt),
+                  f"{tag} {i} ({r.plan.strategy}): {r.result.ids} differs from the live "
+                  f"ground_truth {gt}")
+            check(same_up_to_ties(qs[i], r.result.ids, r.result.dists, ti, td),
+                  f"{tag} {i} ({r.plan.strategy}): {r.result.ids} {r.result.dists} differs from "
+                  f"the live truth {ti} {td}")
+        else:
+            recalls.append(recall_at_k(r.result.ids, ti))
+    return {"recall": recalls, "n_exact": n_exact}
+
+
+def routed_live(eng, qs, ps, k: int) -> dict:
+    """Phase 4c's routed engine after churn: 2 % of the base rows deleted,
+    0.5 % new rows upserted, then the spanning head's rows (2 per class)
+    through query() and batch_query()."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    n = eng.live.base_n
+    rng = np.random.default_rng(23)
+    eng.delete(rng.choice(n, int(0.02 * n), replace=False))
+    rows = rng.choice(n, int(0.005 * n), replace=False)
+    noise = (0.01 * rng.standard_normal((rows.size, eng.vectors.shape[1]))).astype(np.float32)
+    eng.upsert(eng.vectors[rows] + noise, eng.cat[rows], eng.num[rows])
+    ops.reset_kernel_launches()
+    ops.reset_dispatch_stats()
+    served = [eng.query(qs[j], ps[j], k) for j in range(len(ps))]
+    batched = eng.batch_query(qs, ps, k)
+    launches = ops.kernel_launches()
+    check(launches["masked_l2_topk"] > 0, "the live routed path launched masked_l2_topk no time")
+    out = check_live_rows(eng, qs, ps, served, batched, k, "routed live", exact_of=lambda r: (
+        r.result.backend, r.result.knob) == ("flat", "exact"))
+    got = {r.result.backend for r in served}
+    print(f"[live] routed engine after deleting {eng.live.n_deleted} base rows and upserting "
+          f"{eng.live.seg_n}: the spanning head's {len(ps)} rows on backends {sorted(got)} through "
+          f"query() and batch_query(): no tombstoned id, every id passes its predicate once, "
+          f"{out['n_exact']} flat:exact rows equal the live ground truth; kernel launches "
+          f"{launches}; dispatches {ops.dispatch_counts()}", flush=True)
+    return {"launches": launches}
+
+
+def _pct(v):
+    import numpy as np
+
+    v = np.asarray(v) * 1e3
+    return np.percentile(v, 50), np.percentile(v, 99)
+
+
+def serve_level(eng, sh, qs, ps, k: int, batch: int, tag: str, base_p50: dict) -> dict:
+    """Phase 4's served queries through query() and batch_query() on the
+    central and the sharded engine, with the gated row checks; prints the
+    latency per plan against phase 4's, the plan mix and post recall."""
+    import numpy as np
+
+    qps, plan_qps = {}, {}
+
+    def run(e, name):
+        served = [e.query(qs[i], ps[i], k) for i in range(len(ps))]
+        batched = []
+        t0 = time.perf_counter()
+        for s in range(0, len(ps), batch):
+            batched += e.batch_query(qs[s:s + batch], ps[s:s + batch], k)
+        qps[name] = len(ps) / (time.perf_counter() - t0)
+        # batch_query QPS over the rows of each plan alone, beside query()'s
+        # serial QPS on the same rows
+        by: dict = {}
+        for i, r in enumerate(served):
+            by.setdefault(r.plan.strategy, []).append(i)
+        for plan, rows in sorted(by.items()):
+            t0 = time.perf_counter()
+            for s in range(0, len(rows), batch):
+                idx = rows[s:s + batch]
+                e.batch_query(qs[idx], [ps[j] for j in idx], k)
+            serial = len(rows) / sum(served[j].result.elapsed for j in rows)
+            plan_qps[name, plan] = (len(rows) / (time.perf_counter() - t0), serial)
+        return served, batched
+
+    def exact(r):
+        return r.plan.strategy in ("pre", "ipre")
+
+    from repro_torch.kernels import ops
+
+    l0 = ops.kernel_launches()["masked_l2_topk"]
+    c_served, c_batched = run(eng, "central")
+    l1 = ops.kernel_launches()["masked_l2_topk"]
+    s_served, s_batched = run(sh, "sharded")
+    l2 = ops.kernel_launches()["masked_l2_topk"]
+    rows = check_live_rows(eng, qs, ps, c_served, c_batched, k, f"{tag} central", exact)
+    check_live_rows(eng, qs, ps, s_served, s_batched, k, f"{tag} sharded")
+    for i, (c, s_) in enumerate(zip(c_served, s_served)):
+        check(c.plan.strategy == s_.plan.strategy, f"{tag} {i}: plans differ")
+        if exact(c):
+            check(np.array_equal(c.result.ids, s_.result.ids)
+                  and np.array_equal(c.result.dists, s_.result.dists),
+                  f"{tag} {i}: sharded exact row {s_.result.ids} differs from the central "
+                  f"{c.result.ids}")
+    mix: dict = {}
+    for name, served in (("central", c_served), ("sharded", s_served)):
+        by: dict = {}
+        for r in served:
+            by.setdefault(r.plan.strategy, []).append(r.result.elapsed)
+        for plan, v in sorted(by.items()):
+            p50, p99 = _pct(v)
+            print(f"[live] {tag} {name} {plan}: {len(v)} queries, query() p50 {p50:.3f} ms "
+                  f"(x{p50 / base_p50[plan]:.2f} phase 4's), p99 {p99:.3f} ms", flush=True)
+        mix[name] = {p: len(v) for p, v in by.items()}
+    rec = float(np.mean(rows["recall"])) if rows["recall"] else float("nan")
+    print(f"[live] {tag}: plan mix {mix['central']}; post recall@10 against the live truth "
+          f"{rec:.4f} over {len(rows['recall'])}; {rows['n_exact']} exact rows equal the live "
+          f"ground truth (bitwise) and the independent truth (up to ties), the sharded exact rows "
+          f"equal the central ones bitwise, batch rows equal query rows; batch_query (batch "
+          f"{batch}) {qps['central']:.1f} QPS central, {qps['sharded']:.1f} sharded; masked_l2_topk "
+          f"launches serving {l1 - l0} central, {l2 - l1} sharded", flush=True)
+    print(f"[live] {tag}: batch_query QPS by plan (query() serial QPS on the same rows): "
+          + "; ".join(f"{name} {plan} {b:.1f} ({q1:.1f})"
+                      for (name, plan), (b, q1) in sorted(plan_qps.items())), flush=True)
+    return {"exact": [(i, c.result.ids, c.result.dists) for i, c in enumerate(c_served)
+                      if exact(c)], "launches": l2 - l0}
+
+
+def live_index_check(eng, qs, ps, k: int, n: int = 16, n_plain: int = 8) -> int:
+    """LiveIndex over the flat backend on the engine's device corpus and its
+    live corpus (segment + tombstones), one predicate mask per query: equal
+    bitwise to one kernel scan over base + segment under the same live mask,
+    and on its first n_plain queries to the plain version over the same rows
+    on the host (ids up to ties, distances within the band).  Returns the
+    LiveIndex's own masked_l2_topk launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.index import LiveIndex, make_backend
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import fused_masked_topk
+
+    live = eng.live
+    check(live.seg_n > 0 and live.n_deleted > 0, "LiveIndex check needs a segment and tombstones")
+    li = LiveIndex(make_backend("flat", eng.vectors_dev, device="cuda"), live)
+    cat = np.concatenate([live.base_cat, live.seg_cat()])
+    num = np.concatenate([live.base_num, live.seg_num()])
+    x_all = torch.cat([eng.vectors_dev, live.seg_vectors_dev()])
+    x_host = x_all.cpu()
+    alive = live.alive_mask()
+    launches = 0
+    for i in range(n):
+        m = ps[i].eval(cat, num)
+        l0 = ops.kernel_launches()["masked_l2_topk"]
+        d, ids = li.search_masked(qs[i:i + 1], m, k)
+        launches += ops.kernel_launches()["masked_l2_topk"] - l0
+        mt = torch.as_tensor(m & alive)
+        q = torch.as_tensor(qs[i:i + 1])
+        wd, wi = fused_masked_topk(q.cuda(), x_all, mt.cuda(), k)
+        wd, wi = wd.cpu().numpy(), wi.cpu().numpy()
+        check(np.array_equal(ids, wi) and np.array_equal(d, wd),
+              f"LiveIndex row {i}: {ids} {d} differs from one scan of the live rows {wi} {wd}")
+        check(not live.is_deleted(ids[ids >= 0]).any(), f"LiveIndex row {i}: a dead id")
+        if i < n_plain:
+            pd, pi = fused_masked_topk(q, x_host, mt, k)
+            check(same_up_to_ties(qs[i], ids, d, pi.numpy(), pd.numpy()),
+                  f"LiveIndex row {i}: {ids} {d} differs from the plain version "
+                  f"{pi.numpy()} {pd.numpy()}")
+    check(launches == 2 * n, f"LiveIndex launched masked_l2_topk {launches} times for {n} "
+                             "searches, not one base and one segment scan each")
+    print(f"[live] LiveIndex(flat) over {live.base_n} base rows, {live.seg_n} segment rows and "
+          f"{live.n_deleted} tombstones: {n} searches equal one kernel scan of the live rows "
+          f"bitwise and, on {n_plain}, the plain version up to ties; masked_l2_topk launches "
+          f"{launches}", flush=True)
+    del x_all, x_host, li
+    torch.cuda.empty_cache()
+    return launches
+
+
+def live_phase(mp: dict, k: int = 10, batch: int = 64, n_shards: int = 4) -> dict:
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import carry
+    from repro_torch.core import EngineConfig, FilteredANNEngine
+    from repro_torch.dist import HeartbeatMonitor, replan_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ShardedANNEngine
+
+    ds, qs, ps, eng4 = mp["ds"], mp["qs"], mp["preds"], mp["engine"]
+    base_p50 = {}
+    for r in mp["served"]:
+        base_p50.setdefault(r.plan.strategy, []).append(r.result.elapsed)
+    # phase 4's p50 per plan; pre, which its planner seldom picks, is the
+    # pre executor's median over phase 4's direct runs
+    base_p50 = {p: _pct(v)[0] for p, v in base_p50.items()}
+    base_p50.setdefault("pre", mp["pre_ms"])
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    ops.reset_dispatch_stats()
+    t0 = time.perf_counter()
+    eng = FilteredANNEngine(ds.vectors, ds.cat, ds.num, EngineConfig(device="cuda")).build()
+    carry.install(eng, centroids=eng4.ivf.centroids.cpu().numpy(),
+                  assignment=carry.ivf_assignment(eng4.ivf),
+                  gbm=carry.gbm_state(eng4.estimator.model),
+                  planner=eng4.planner.state_dict())
+    t1 = time.perf_counter()
+    sh = ShardedANNEngine(eng, n_shards=n_shards)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    views = all(s.pre_exec.vectors.data_ptr() == eng.vectors_dev[int(s.ids[0])].data_ptr()
+                for s in sh.shards)
+    check(views, "a shard's device rows are not a view of the engine's corpus")
+    print(f"[live] plain engine {t1 - t0:.2f} s (build + carried planner, GBM and IVF layout), "
+          f"{n_shards} shards {t2 - t1:.2f} s (views of the device corpus, an IVF each); "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
+
+    # the segment: fresh rows, ids= replacements of live rows, and exact
+    # copies of the base rows phase 4's exact plans returned first
+    n, dim = eng.vectors.shape
+    rng = np.random.default_rng(31)
+    n_seg = int(SEG_FRAC * n)
+    top = np.unique([r.result.ids[0, j] for r in mp["served"] if r.plan.strategy in ("pre", "ipre")
+                     for j in range(3) if r.result.ids[0, j] >= 0])
+    copies = top[:600]
+    check(copies.size >= 64, f"only {copies.size} base rows to copy")
+    protected = np.zeros(n, bool)
+    protected[copies] = True
+    pool = rng.permutation(np.flatnonzero(~protected))
+    replace = pool[: n_seg // 50]
+    pool = pool[replace.size:]
+    src = rng.choice(n, max(0, n_seg - copies.size - replace.size))
+    fresh_v = (eng.vectors[src] + 0.05 * rng.standard_normal((src.size, dim))).astype(np.float32)
+    t0 = time.perf_counter()
+    sh.upsert(eng.vectors[replace] + 0.01, eng.cat[replace], eng.num[replace], ids=replace)
+    copy_h = sh.upsert(eng.vectors[copies], eng.cat[copies], eng.num[copies])
+    for part in np.array_split(np.arange(src.size), 8):
+        sh.upsert(fresh_v[part], eng.cat[src[part]], eng.num[src[part]])
+    up_s = time.perf_counter() - t0
+    n_up = eng.live.seg_n
+    del_s, deleted = 0.0, replace.size
+    exact_before = None
+    serving = 0     # masked_l2_topk launches of the serving runs alone
+    for frac in TOMBSTONE_FRACS:
+        target = int(frac * n)
+        kill = pool[: target - deleted]
+        pool = pool[kill.size:]
+        t0 = time.perf_counter()
+        sh.delete(kill)
+        del_s += time.perf_counter() - t0
+        deleted = target
+        print(f"[live] level {frac:.2f}: {eng.live.n_deleted} tombstones "
+              f"({eng.live.tombstone_frac:.4f} of {eng.live.n_total} rows), segment "
+              f"{eng.live.seg_n} rows ({eng.live.segment_frac:.4f})", flush=True)
+        lvl = serve_level(eng, sh, qs, ps, k, batch, f"tomb {frac:.2f}", base_p50)
+        exact_before = lvl["exact"]
+        serving += lvl["launches"]
+    serving += live_index_check(eng, qs, ps, k)
+    profile_runs({"central query()": lambda i: eng.query(qs[i], ps[i], k),
+                  "sharded query()": lambda i: sh.query(qs[i], ps[i], k)}, 40, tag="live")
+    n_ties = 0
+    for i, ids, _ in exact_before:
+        row = ids[0].tolist()
+        for b, c in zip(copies.tolist(), copy_h.tolist()):
+            if b in row and c in row:
+                check(row.index(c) == row.index(b) + 1,
+                      f"query {i}: the copy {c} of base row {b} does not come right after it: {row}")
+                n_ties += 1
+    check(n_ties > 0, "no served exact row held a base row and its copy")
+    print(f"[live] upsert {n_up} rows in {up_s:.2f} s ({n_up / up_s:.0f} rows/s; {replace.size} "
+          f"ids= replacements, {copies.size} exact copies of base rows), delete "
+          f"{eng.live.n_deleted} rows in {del_s:.2f} s ({eng.live.n_deleted / del_s:.0f} rows/s); "
+          f"{n_ties} served exact rows hold a base row and its copy, the copy right after it",
+          flush=True)
+
+    # a shard stops beating: replan to 3 and reshard the live deployment
+    hb = HeartbeatMonitor(n_hosts=n_shards, timeout=0.05)
+    events, now = [], 0.0
+    for step in range(12):
+        now += 0.01
+        for si in range(n_shards):
+            if not (si == 2 and step >= 4):
+                hb.beat(si, now)
+        events += hb.check(step, now)
+        sh.query(qs[step], ps[step], k)
+    check([(e.kind, e.host) for e in events] == [("dead_host", 2)], f"fault events {events}")
+    shape, _ = replan_mesh(len(hb.alive), model_parallel=1)
+    t0 = time.perf_counter()
+    sh.reshard(shape[0])
+    reshard_s = time.perf_counter() - t0
+    check(len(sh.shards) == 3, "reshard did not give 3 shards")
+    for i, ids, dists in exact_before:
+        r = sh.query(qs[i], ps[i], k)
+        check(np.array_equal(r.result.ids, ids) and np.array_equal(r.result.dists, dists),
+              f"query {i} after reshard: {r.result.ids} differs from {ids}")
+    print(f"[live] shard 2 stopped beating: {events[0]}; replan_mesh -> {shape}; reshard(3) "
+          f"{reshard_s:.2f} s; {len(exact_before)} exact rows equal the central engine's bitwise",
+          flush=True)
+
+    # compaction: exact rows map through id_map, and equal a fresh build
+    t0 = time.perf_counter()
+    id_map = sh.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    fresh = FilteredANNEngine(eng.vectors, eng.cat, eng.num, EngineConfig(device="cuda")).build()
+    carry.install(fresh, gbm=carry.gbm_state(eng4.estimator.model),
+                  planner=eng4.planner.state_dict())
+    n_cmp = 0
+    for i, ids, dists in exact_before:
+        want = np.where(ids >= 0, id_map[np.maximum(ids, 0)], -1)
+        for e in (eng, sh, fresh):
+            r = e.query(qs[i], ps[i], k)
+            if r.plan.strategy not in ("pre", "ipre"):
+                continue
+            n_cmp += 1
+            check(np.array_equal(r.result.ids, want) and np.array_equal(r.result.dists, dists),
+                  f"query {i} after compaction: {r.result.ids} differs from {want}")
+    check(n_cmp > 0, "no exact row to compare after compaction")
+    launches = ops.kernel_launches()
+    check(serving > 0, "phase 4d's serving launched masked_l2_topk no time")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[live] compact (central + re-shard to 3) {compact_s:.2f} s (central rebuild "
+          f"{eng.build_time_['compaction']:.2f} s) to {eng.vectors.shape[0]} rows; {n_cmp} exact "
+          f"rows of the compacted central, sharded and a fresh build equal the live rows through "
+          f"id_map bitwise; peak {peak:.2f} GB allocated in 4d", flush=True)
+    print(f"[live] masked_l2_topk launches in 4d: {serving} serving (query() and batch_query() "
+          f"at each level, LiveIndex), {launches['masked_l2_topk']} in the whole phase (builds, "
+          f"checks, profiling, reshard and compaction included); kernel launches {launches}",
+          flush=True)
+    del fresh, sh, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[live] phase 4d (plain engine, shards, churn, reshard, compaction) took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": {"masked_l2_topk": serving}, "upsert_rows_s": n_up / up_s, "delete_rows_s": deleted / del_s,
+            "compact_s": compact_s, "peak_gb": peak}
 
 
 # ----------------------------------------------------------------------
@@ -1308,6 +1730,7 @@ def main(argv=None) -> int:
     del rt["engine"]
     gc.collect()
     torch.cuda.empty_cache()
+    lv = live_phase(mp)
     lm = lm_serving()
     rag_phase(lm["model"], mp)
     del lm["model"], mp["engine"]
@@ -1323,7 +1746,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/masked_l2_topk.cu",
         "replaces": "src/repro/kernels/masked_l2.py:33",
-        "launches": sum(p["launches"]["masked_l2_topk"] for p in (mp, dnf, rt)),
+        "launches": sum(p["launches"]["masked_l2_topk"] for p in (mp, dnf, rt, lv)),
         "max_abs_err": kc["max_abs_err"],
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -18,6 +18,11 @@ nor ``repro``; it reads plain attributes and arrays):
   (``neighbors``, ``seeds``, ``entry``) -> :func:`ivfpq_state`,
   :func:`acorn_state`, installed with ``IVFPQIndex.set_state`` /
   ``AcornIndex.set_state``;
+* per-shard IVF layouts (centroids and assignment of each shard) ->
+  :func:`shard_ivf_layouts`, :func:`install_shard_ivfs`;
+* a live corpus' ``mutation_state()`` tree (either package's) ->
+  :func:`mutation_tree`, which ``load_mutation_state`` of either package
+  takes;
 * the LM's parameter tree (``Model.init(jax.random.PRNGKey(0))``) ->
   :func:`model_params_from_reference`, and the RAG server's projection ->
   :func:`retrieval_server`.
@@ -26,7 +31,7 @@ nor ``repro``; it reads plain attributes and arrays):
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +45,8 @@ from .serve.retrieval import RetrievalAugmentedServer
 
 __all__ = ["gbm_state", "gbm_from_state", "planner_from_state",
            "ivf_from_assignment", "ivf_assignment", "ivfpq_state", "acorn_state",
-           "install", "model_params_from_reference", "retrieval_server"]
+           "install", "shard_ivf_layouts", "install_shard_ivfs", "mutation_tree",
+           "model_params_from_reference", "retrieval_server"]
 
 _NODE_FIELDS = ("feature", "threshold", "left", "right", "value")
 
@@ -156,6 +162,40 @@ def install(engine, *, centroids: Optional[np.ndarray] = None,
         engine.planner_version += 1
     engine.plan_cache.clear()
     return engine
+
+
+def shard_ivf_layouts(shards) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """(centroids, assignment) of each shard's post-filter IVF, in shard
+    order (either package's ``CorpusShard`` list)."""
+    return [(_array(s.post_exec.index.centroids), ivf_assignment(s.post_exec.index))
+            for s in shards]
+
+
+def install_shard_ivfs(shards, layouts) -> None:
+    """Give each of the port's shards the IVF layout ``layouts[s]``
+    (centroids, assignment); a shard's ``ivf`` backend that shared its old
+    IVF follows it."""
+    if len(layouts) != len(shards):
+        raise ValueError(f"{len(layouts)} layouts for {len(shards)} shards")
+    for s, (c, a) in zip(shards, layouts):
+        old = s.post_exec.index
+        s.post_exec.index = ivf_from_assignment(old.vectors, c, a, seed=old.seed,
+                                                device=old.device)
+        ivf_backend = (s.backend_set.backends.get("ivf")
+                       if s.backend_set is not None else None)
+        if ivf_backend is not None and ivf_backend.index is old:
+            ivf_backend.index = s.post_exec.index
+
+
+def mutation_tree(tree) -> Dict[str, np.ndarray]:
+    """A ``mutation_state()`` tree (either package's) as numpy arrays with
+    the reference's dtypes, for the other package's ``load_mutation_state``."""
+    out = {k: _array(v) for k, v in tree.items()}
+    out["base_n"] = np.asarray(out["base_n"], np.int64)
+    out["generation"] = np.asarray(out["generation"], np.int64)
+    out["tomb"] = np.asarray(out["tomb"], np.uint32)
+    out["seg_vectors"] = np.asarray(out["seg_vectors"], np.float32)
+    return out
 
 
 def model_params_from_reference(cfg, params: Dict, device=DEFAULT_DEVICE) -> Model:

@@ -7,8 +7,9 @@ from .executors import (
     PreFilterExec, IndexedPreFilterExec, PostFilterExec,
     SearchResult, recall_at_k,
 )
+from .corpus import CompactionPolicy, LiveCorpus
 from .engine import (
-    FilteredANNEngine, EngineConfig, PlannedResult, QueryResult, QueryLabel,
+    CorpusShard, FilteredANNEngine, EngineConfig, PlannedResult, QueryResult, QueryLabel,
 )
 from .trainer import gen_queries, gen_predicate
 from .gbm import GradientBoostingRegressor
@@ -22,7 +23,7 @@ __all__ = [
     "PreFilterExec", "IndexedPreFilterExec", "PostFilterExec",
     "SearchResult", "recall_at_k",
     "FilteredANNEngine", "EngineConfig", "PlannedResult", "QueryResult",
-    "QueryLabel",
+    "QueryLabel", "CorpusShard", "LiveCorpus", "CompactionPolicy",
     "gen_queries", "gen_predicate",
     "GradientBoostingRegressor",
 ]

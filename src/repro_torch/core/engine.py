@@ -15,8 +15,15 @@ row, and the clause lists merge with cross-clause de-duplication.  With
 ``fit()`` races every (backend, knob-tier) class and trains the planner's
 routing head, and post-filter rows the head routes run on that class.
 
-The live-corpus mutations (``upsert``, ``delete``, ``compact``) are not
-ported yet and raise ``NotImplementedError`` rather than answer wrongly.
+The corpus takes writes between rebuilds (``upsert``, ``delete``): deletes
+set tombstones, composed out of every candidate mask at query time, and
+upserts append to a segment on the device that every query scans exactly
+and merges behind the base part (``_execute_grouped``); ``compact``
+folds both into a rebuilt engine whose exact plans answer bit for bit as
+the live one did.  ``shard_corpus`` splits the corpus into contiguous
+:class:`CorpusShard` s, each with its own executors and indexes over a view
+of the device corpus (``repro_torch.serve.ShardedANNEngine`` fans out to
+them).
 """
 from __future__ import annotations
 
@@ -29,9 +36,11 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..dist.collectives import merge_topk
 from ..index.flat import l2_topk
 from ..index.ivf import IVFIndex
 from ..index.registry import BackendSet
+from .corpus import CompactionPolicy, LiveCorpus
 from .executors import (
     IndexedPreFilterExec,
     PostFilterExec,
@@ -54,7 +63,7 @@ from .selectivity import SelEstimate, SelectivityEstimator
 from .stats import DatasetStats
 
 __all__ = ["FilteredANNEngine", "EngineConfig", "PlannedResult", "QueryResult",
-           "PlanCache", "QueryLabel", "ExecutionPlan", "ClausePlan"]
+           "CorpusShard", "PlanCache", "QueryLabel", "ExecutionPlan", "ClausePlan"]
 
 
 @dataclasses.dataclass
@@ -76,11 +85,13 @@ class EngineConfig:
     # recall@k a (backend, knob) class must reach on a training query before
     # utility gets a say in its routing label; below it, max-recall wins
     route_recall_target: float = 0.9
+    # live-corpus compaction thresholds (core.corpus.CompactionPolicy): churn
+    # past any of them makes needs_compaction()/maybe_compact() fold segment
+    # + tombstones into a rebuilt index
+    max_tombstone_frac: float = 0.20
+    max_segment_frac: float = 0.20
+    max_list_drift: float = 1.75
     device: str = DEFAULT_DEVICE       # where the corpus, indexes and planner live
-
-
-def _not_in_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
 
 @dataclasses.dataclass
@@ -155,6 +166,7 @@ def _execute_grouped(
     ests: np.ndarray,
     routes: Optional[np.ndarray] = None,
     backend_set: Optional[BackendSet] = None,
+    live: Optional[LiveCorpus] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Decision-grouped batch execution.  The two pre-filter groups
     (scan-masked and bitmap-masked) evaluate each distinct predicate's mask
@@ -163,20 +175,55 @@ def _execute_grouped(
     With ``routes``/``backend_set``, post-filter rows carrying a routing
     class >= 0 group by (class, predicate): each group evaluates its mask
     once (through the bitmap index when it covers the predicate) and runs
-    one ``search_class`` on the routed backend.  Returns ``(dists (B, k),
-    ids (B, k), expansion_rounds (B,))``."""
+    one ``search_class`` on the routed backend.
+
+    Once ``live`` has mutated (the reference's ``_live_execute_grouped``),
+    every base mask is cut to the base rows (the extended attribute index
+    is ``n_total`` long) and ANDed with the live bitmap, and each group's
+    rows also scan the append segment exactly through
+    ``PreFilterExec.search_masked`` over its device rows
+    (``fused_masked_topk``, the kernel on the card); the parts merge with
+    ``merge_topk``, base part first, so equal distances keep handle order,
+    which a fresh build over the compacted corpus reproduces (its handle ->
+    position map is monotone).  Returns ``(dists (B, k), ids (B, k),
+    expansion_rounds (B,))``."""
     b = len(preds)
     out_d = np.full((b, k), np.inf, np.float32)
     out_i = np.full((b, k), -1, np.int32)
     rounds = np.zeros(b, np.int64)
+    if live is not None and not live.dirty:
+        live = None
+    alive = live.alive_mask() if live is not None else None
+    seg_exec = None
+    if live is not None and live.seg_n:
+        seg_exec = PreFilterExec(live.seg_vectors_dev(), live.seg_cat(), live.seg_num())
+    masks: dict = {}
+
+    def base_mask(ex, pred) -> np.ndarray:
+        key = (ex is pre_exec, pred)
+        if key not in masks:
+            m = ex.candidate_mask(pred)
+            masks[key] = m if live is None else m[: live.base_n] & alive[: live.base_n]
+        return masks[key]
+
+    def finish(rows, pred, bd, bi):
+        if seg_exec is not None:
+            sm = seg_exec.candidate_mask(pred) & alive[live.base_n:]
+            if sm.any():
+                res = seg_exec.search_masked(queries[rows], sm, k)
+                si = np.where(res.ids >= 0, res.ids + live.base_n, -1).astype(np.int32)
+                bd, bi = merge_topk(np.stack([bd, res.dists]), np.stack([bi, si]), k)
+        out_d[rows], out_i[rows] = bd, bi
+
     for decision, ex in ((PRE_FILTER, pre_exec), (INDEXED_PRE, ipre_exec or pre_exec)):
         groups: dict = {}
         for i in range(b):
             if decisions[i] == decision:
                 groups.setdefault(preds[i], []).append(i)
         for pred, rows in groups.items():
-            res = ex.search(queries[rows], pred, k)
-            out_d[rows], out_i[rows] = res.dists, res.ids
+            t0 = time.perf_counter()
+            res = ex.search_masked(queries[rows], base_mask(ex, pred), k, t0=t0)
+            finish(rows, pred, res.dists, res.ids)
     routed = routes is not None and backend_set is not None
     post_rows = [i for i in range(b)
                  if decisions[i] == POST_FILTER and not (routed and routes[i] >= 0)]
@@ -184,21 +231,23 @@ def _execute_grouped(
         d, ids, rnd = post_exec.search_rows(
             queries[post_rows], [preds[i] for i in post_rows], k,
             [float(ests[i]) for i in post_rows],
+            alive=None if live is None else alive[: live.base_n],
         )
-        out_d[post_rows], out_i[post_rows] = d, ids
         rounds[post_rows] = rnd
+        groups = {}
+        for j, i in enumerate(post_rows):
+            groups.setdefault(preds[i], []).append(j)
+        for pred, js in groups.items():
+            finish([post_rows[j] for j in js], pred, d[js], ids[js])
     if routed:
         groups = {}
         for i in range(b):
             if decisions[i] == POST_FILTER and routes[i] >= 0:
                 groups.setdefault((int(routes[i]), preds[i]), []).append(i)
-        mask_ex = ipre_exec or pre_exec
-        masks: dict = {}
         for (ci, pred), rows in groups.items():
-            if pred not in masks:
-                masks[pred] = mask_ex.candidate_mask(pred)
-            d, ids = backend_set.search_class(ci, queries[rows], masks[pred], k)
-            out_d[rows], out_i[rows] = d[:, :k], ids[:, :k]
+            d, ids = backend_set.search_class(ci, queries[rows],
+                                              base_mask(ipre_exec or pre_exec, pred), k)
+            finish(rows, pred, d[:, :k], ids[:, :k])
     return out_d, out_i, rounds
 
 
@@ -253,6 +302,68 @@ class PlanCache:
         }
 
 
+@dataclasses.dataclass
+class CorpusShard:
+    """One contiguous partition of the corpus with its own executors.
+
+    Made by :meth:`FilteredANNEngine.shard_corpus`.  Executors work on
+    shard-local row numbers; :meth:`search_batch` maps results back to
+    global ids so shard outputs merge directly.  ``vectors`` is the shard's
+    host rows (a view of the engine's array), and its executors scan a view
+    of the engine's device corpus.  Each shard has its OWN IVF, attribute
+    index and predicate cache (bitmaps are positional), and backend set."""
+
+    shard_id: int
+    ids: np.ndarray                    # (n_local,) global row ids
+    vectors: np.ndarray                # (n_local, d) host rows
+    pre_exec: PreFilterExec
+    post_exec: PostFilterExec
+    ipre_exec: Optional[IndexedPreFilterExec] = None
+    backend_set: Optional[BackendSet] = None   # per-shard backend instances
+    live: Optional[LiveCorpus] = None          # created on first mutation
+
+    def ensure_live(self) -> LiveCorpus:
+        if self.live is None:
+            self.live = LiveCorpus(self.vectors, self.pre_exec.cat, self.pre_exec.num,
+                                   device=self.pre_exec.device)
+        return self.live
+
+    def upsert_local(self, vectors: np.ndarray, cat: np.ndarray, num: np.ndarray,
+                     global_ids: np.ndarray,
+                     local_ids: Optional[np.ndarray] = None) -> np.ndarray:
+        """Append rows to this shard's live view and extend its local ->
+        global map (``global_ids``, one per row); ``local_ids`` tombstones
+        replaced local handles first.  Returns the new local handles."""
+        live = self.ensure_live()
+        c = np.atleast_2d(np.asarray(cat))
+        m = np.atleast_2d(np.asarray(num))
+        handles = live.upsert(vectors, c, m, ids=local_ids)
+        if self.ipre_exec is not None and self.ipre_exec.index is not None:
+            self.ipre_exec.index.extend(c, m)
+            self.ipre_exec.cache.invalidate()
+        self.ids = np.concatenate([self.ids, np.asarray(global_ids, self.ids.dtype)])
+        return handles
+
+    def delete_local(self, local_ids: np.ndarray) -> np.ndarray:
+        """Tombstone shard-local handles; returns the newly dead ones."""
+        return self.ensure_live().delete(local_ids)
+
+    def _to_global(self, ids: np.ndarray) -> np.ndarray:
+        return np.where(ids >= 0, self.ids[np.maximum(ids, 0)], -1).astype(np.int32)
+
+    def search_batch(self, queries: np.ndarray, preds: Sequence[AnyPredicate], k: int,
+                     decisions: np.ndarray, ests: np.ndarray,
+                     routes: Optional[np.ndarray] = None,
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Run a planned batch on this shard through the engine's grouped
+        executor (live once the shard mutated).  Returns ``(dists (B, k),
+        ids (B, k) GLOBAL, expansion_rounds (B,))``."""
+        d, ids, rounds = _execute_grouped(
+            self.pre_exec, self.ipre_exec, self.post_exec, queries, preds, k, decisions, ests,
+            routes=routes, backend_set=self.backend_set, live=self.live)
+        return d, self._to_global(ids), rounds
+
+
 class FilteredANNEngine:
     def __init__(
         self,
@@ -295,6 +406,19 @@ class FilteredANNEngine:
         self.planner = CorePlanner(seed=self.config.seed, device=self.device)
         self.feat = PlannerFeatures(self.dataset_stats)
         self.backend_set: Optional[BackendSet] = None   # built by build()
+        # the live corpus: every upsert/delete goes through it, the estimator
+        # composes its tombstones into the exact popcount, and
+        # corpus_generation (engine-level, monotone across compactions)
+        # joins the plan epoch
+        self.live = LiveCorpus(self.vectors, self.cat, self.num, device=self.device)
+        self.estimator.live = self.live
+        self.corpus_generation = getattr(self, "corpus_generation", 0)
+        self.n_compactions = getattr(self, "n_compactions", 0)
+        self.compaction_policy = CompactionPolicy(
+            max_tombstone_frac=self.config.max_tombstone_frac,
+            max_segment_frac=self.config.max_segment_frac,
+            max_list_drift=self.config.max_list_drift,
+        )
         self.build_time_["stats"] = t1 - t0
         self.build_time_["attr_index"] = t2 - t1
         return self
@@ -369,11 +493,22 @@ class FilteredANNEngine:
             clauses = tuple(self.label_query(q, t, k) for t in self._unique_terms(pred))
         t_m0 = time.perf_counter()
         mask = pred.eval(self.cat, self.num)
+        alive_base = self.live.alive_mask()[: self.live.base_n] if self.live.dirty else None
+        if alive_base is not None:
+            # race over the live rows: tombstones compose into the mask, the
+            # truth and the post path alike (the segment sits out the race,
+            # as both contenders would scan it alike)
+            mask = mask & alive_base
         t_mask = time.perf_counter() - t_m0
         true_sel = float(mask.mean())
         ti = self.ground_truth_masked(q, mask, k)
-        r_pre = self.pre_exec.search(q, pred, k)
-        r_post = self.post_exec.search(q, pred, k, est_selectivity=true_sel)
+        if alive_base is not None:
+            r_pre = self.pre_exec.search_masked(q, mask, k)
+            r_pre.elapsed += t_mask          # charge the mask, as search() does
+        else:
+            r_pre = self.pre_exec.search(q, pred, k)
+        r_post = self.post_exec.search(q, pred, k, est_selectivity=true_sel,
+                                       alive=alive_base)
         u_pre = recall_at_k(r_pre.ids, ti) / max(r_pre.elapsed, 1e-7)
         u_post = recall_at_k(r_post.ids, ti) / max(r_post.elapsed, 1e-7)
         route, route_utils = NO_ROUTE, None
@@ -460,21 +595,134 @@ class FilteredANNEngine:
         return self
 
     # ------------------------------------------------------------------
-    # live-corpus mutations: not in this slice
+    # live-corpus mutations
     # ------------------------------------------------------------------
-    def upsert(self, vectors, cat, num, ids=None):
-        raise _not_in_slice("the live corpus (upsert)")
+    def upsert(self, vectors: np.ndarray, cat: np.ndarray, num: np.ndarray,
+               ids: Optional[np.ndarray] = None) -> np.ndarray:
+        """Stream rows into the live corpus; returns their (stable, never
+        reused) handles.  ``ids`` replaces existing handles: the old rows
+        are tombstoned and the new versions appended under fresh handles.
 
-    def delete(self, ids):
-        raise _not_in_slice("the live corpus (delete)")
+        Nothing is rebuilt: label bitmaps extend and stay exact; the range
+        index goes stale (fails closed out of ``covers()``, so range
+        predicates fall back to the scan and the estimated selectivity);
+        statistics fold the delta in; compiled predicates are invalidated;
+        the corpus generation, hence the plan epoch, moves."""
+        v = np.atleast_2d(np.asarray(vectors, np.float32))
+        c = np.atleast_2d(np.asarray(cat))
+        m = np.atleast_2d(np.asarray(num))
+        removed_cat = removed_num = None
+        if ids is not None:
+            old = np.unique(np.asarray(ids, np.int64))
+            old = old[~self.live.is_deleted(old)]
+            if old.size:      # attrs of the rows about to be tombstoned
+                removed_cat, removed_num = self.live.row_attrs(old)
+        handles = self.live.upsert(v, c, m, ids=ids)
+        if self.attr_index is not None:
+            self.attr_index.extend(c, m)
+            self.pred_cache.invalidate()
+        self.dataset_stats.apply_delta(added_cat=c, added_num=m,
+                                       removed_cat=removed_cat, removed_num=removed_num)
+        ivf = getattr(self, "ivf", None)
+        if ivf is not None:   # keep the drift trigger's assignments current
+            self.live.assign_new(ivf.centroids)
+        self.corpus_generation += 1
+        return handles
 
-    def compact(self):
-        raise _not_in_slice("the live corpus (compact)")
+    def delete(self, ids: np.ndarray) -> np.ndarray:
+        """Tombstone handles (idempotent); returns the newly dead ones.  No
+        index is rewritten: the tombstones compose into every candidate
+        mask, backend call and exact popcount at query time."""
+        fresh = self.live.delete(ids)
+        if fresh.size:
+            rc, rn = self.live.row_attrs(fresh)
+            self.dataset_stats.apply_delta(removed_cat=rc, removed_num=rn)
+        self.corpus_generation += 1
+        return fresh
+
+    def list_drift(self) -> float:
+        """IVF list-balance drift if the segment were folded in: the largest
+        list (base + assigned segment rows) over the build-time largest;
+        1.0 when there is nothing to fold."""
+        ivf = getattr(self, "ivf", None)
+        if ivf is None or not self.live.seg_n:
+            return 1.0
+        assign = self.live.assign_new(ivf.centroids)
+        counts = ivf.list_counts + np.bincount(assign, minlength=ivf.n_lists)
+        return float(counts.max() / max(int(ivf.list_counts.max()), 1))
+
+    def needs_compaction(self) -> bool:
+        return self.compaction_policy.due(
+            self.live.tombstone_frac, self.live.segment_frac, self.list_drift())
+
+    def maybe_compact(self) -> Optional[np.ndarray]:
+        """Compact iff churn crossed a :class:`CompactionPolicy` threshold;
+        returns the handle -> new-position id_map, or None."""
+        if self.live.dirty and self.needs_compaction():
+            return self.compact()
+        return None
+
+    def compact(self) -> np.ndarray:
+        """Fold segment + tombstones into a rebuilt engine, in place.
+
+        Live rows land in handle order (a monotone map) and the build reruns
+        over the folded arrays; the trained planner and estimator heads
+        survive.  The old device corpus, IVF and backend set are dropped
+        before the rebuild, so the card never holds two corpora.  Returns
+        ``id_map``: old handle -> new position (-1 for dead)."""
+        t0 = time.perf_counter()
+        vectors, cat, num, id_map = self.live.compacted()
+        planner, head_version = self.planner, self.planner_version
+        est_model, est_gen = self.estimator.model, self.estimator.generation
+        full = getattr(self, "pre_exec", None) is not None
+        for name in ("vectors_dev", "ivf", "pre_exec", "ipre_exec", "post_exec", "live"):
+            self.__dict__.pop(name, None)
+        self.backend_set = None
+        self.vectors, self.cat, self.num = vectors, cat, num
+        if full:
+            self.build()
+        else:
+            self.build_stats()  # planning-only engines stay planning-only
+        self.planner = planner
+        self.planner_version = head_version + 1
+        self.estimator.model = est_model
+        self.estimator.generation = est_gen + 1
+        self.corpus_generation += 1
+        self.n_compactions += 1
+        self.build_time_["compaction"] = time.perf_counter() - t0
+        return id_map
+
+    def mutation_state(self) -> dict:
+        """Array-only snapshot of the mutable corpus state (host numpy, the
+        reference's keys)."""
+        return self.live.state_tree()
+
+    def load_mutation_state(self, tree) -> "FilteredANNEngine":
+        """Restore a :meth:`mutation_state` snapshot (either package's, as
+        numpy arrays) onto a clean engine built over the SAME base corpus,
+        by replaying it through :meth:`upsert` and :meth:`delete`."""
+        base_n = int(np.asarray(tree["base_n"]))
+        if base_n != self.live.base_n or self.live.dirty:
+            raise ValueError("load_mutation_state needs a clean engine built over the "
+                             "same base corpus")
+        sv = np.asarray(tree["seg_vectors"])
+        if sv.shape[0]:
+            self.upsert(sv, np.asarray(tree["seg_cat"]), np.asarray(tree["seg_num"]))
+        from ..filter.bitmap import expand_words
+
+        dead = np.nonzero(expand_words(np.asarray(tree["tomb"], np.uint32),
+                                       self.live.n_total))[0]
+        if dead.size:
+            self.delete(dead)
+        return self
 
     # ------------------------------------------------------------------
-    def _plan_epoch(self) -> Tuple[int, int, int]:
+    def _plan_epoch(self) -> Tuple[int, int, int, int]:
+        """What a cached plan is valid under: the installed head, its fit
+        generation, the estimator's, and the corpus generation (mutations
+        change exact selectivities, hence plans)."""
         return (self.planner_version, self.planner.generation,
-                self.estimator.generation)
+                self.estimator.generation, self.corpus_generation)
 
     def make_plan(self, pred: AnyPredicate, k: int = 10) -> Tuple[ExecutionPlan, float]:
         """Plan one predicate without executing: a single-clause plan for a
@@ -597,13 +845,54 @@ class FilteredANNEngine:
                 self.plan_cache.put(keys[i], plan)
         return plans, time.perf_counter() - t0
 
+    def shard_corpus(self, n_shards: int, n_lists: Optional[int] = None) -> List[CorpusShard]:
+        """Partition the corpus into ``n_shards`` contiguous shards, each
+        with its own pre-filter executors, attribute index, post-filter IVF
+        (seeded ``seed + s``) and backend set.  A shard's device rows are a
+        view of the engine's device corpus, not a copy.  Per-shard IVF lists
+        default to sqrt(n_local), clamped to the shard's row count; empty
+        shards are dropped."""
+        assert n_shards >= 1
+        from ..filter import AttributeIndex, PredicateCache
+
+        corpus = getattr(self, "vectors_dev", None)
+        if corpus is None:            # a planning-only engine: upload once
+            corpus = self.vectors_dev = torch.as_tensor(self.vectors, device=self.device)
+        shards = []
+        for s, ids in enumerate(np.array_split(np.arange(self.vectors.shape[0]), n_shards)):
+            if ids.size == 0:
+                continue
+            lo, hi = int(ids[0]), int(ids[-1]) + 1
+            v = corpus[lo:hi]
+            c, m = self.cat[lo:hi], self.num[lo:hi]
+            lists = min(n_lists or max(1, int(np.sqrt(ids.size))), ids.size)
+            ivf = IVFIndex(v, lists, seed=self.config.seed + s, device=self.device).build()
+            ipre = None
+            if self.config.attr_index:
+                ipre = IndexedPreFilterExec(
+                    v, c, m, AttributeIndex.build(c, m, self.config.range_buckets),
+                    PredicateCache(self.config.pred_cache_size))
+            bset = None
+            if self.config.backends:
+                bset = BackendSet.build(v, self.config.backends, seed=self.config.seed + s,
+                                        device=self.device, ivf=ivf)
+            shards.append(CorpusShard(
+                shard_id=s, ids=ids, vectors=self.vectors[lo:hi],
+                pre_exec=PreFilterExec(v, c, m),
+                post_exec=PostFilterExec(ivf, c, m, alpha0=self.config.alpha0,
+                                         nprobe0=self.config.nprobe0),
+                ipre_exec=ipre, backend_set=bset,
+            ))
+        return shards
+
     # ------------------------------------------------------------------
     def query(self, q: np.ndarray, pred: AnyPredicate, k: int = 10) -> PlannedResult:
         """Plan + execute one filtered ANN query."""
         q = np.atleast_2d(q)
         plan, plan_overhead = self.make_plan(pred, k)
-        if plan.is_dnf:
-            return self._query_dnf(q, pred, k, plan, plan_overhead)
+        if plan.is_dnf or self.live.dirty:
+            # a union, or a mutated corpus: the grouped (live) executor
+            return self._query_grouped(q, pred, k, plan, plan_overhead)
         decision, route = plan.decision, plan.route
         if decision == INDEXED_PRE:
             res = self.ipre_exec.search(q, pred, k)
@@ -634,14 +923,15 @@ class FilteredANNEngine:
         d, ids, rounds = _execute_grouped(
             self.pre_exec, self.ipre_exec, self.post_exec,
             queries if identity else queries[exp_rows], exp_preds, k, decisions, ests,
-            routes=routes, backend_set=self.backend_set,
+            routes=routes, backend_set=self.backend_set, live=self.live,
         )
         return collapse_clause_results(d, ids, rounds, row_map, k)
 
-    def _query_dnf(self, q: np.ndarray, pred: AnyPredicate, k: int,
-                   plan: ExecutionPlan, plan_overhead: float) -> PlannedResult:
-        """One DNF query: its clauses run as decision-group rows, then merge
-        with cross-clause de-duplication."""
+    def _query_grouped(self, q: np.ndarray, pred: AnyPredicate, k: int,
+                       plan: ExecutionPlan, plan_overhead: float) -> PlannedResult:
+        """One query through the grouped executor: a DNF query's clauses as
+        decision-group rows merged with cross-clause de-duplication, or any
+        query once the corpus mutated."""
         t0 = time.perf_counter()
         d, ids, rounds = self._execute(q, [pred], k, [plan])
         share = time.perf_counter() - t0 + plan_overhead
@@ -671,4 +961,17 @@ class FilteredANNEngine:
         return ti.cpu().numpy()
 
     def ground_truth(self, q: np.ndarray, pred: AnyPredicate, k: int = 10) -> np.ndarray:
-        return self.ground_truth_masked(q, pred.eval(self.cat, self.num), k)
+        """Exact top-k ids of ``pred``'s rows; on a mutated corpus, of its
+        LIVE rows, through the pre-filter path of ``_execute_grouped``: the
+        base rows and the segment each scanned with ``fused_masked_topk``
+        and merged base part first.  That scan's (query, row) distance does
+        not depend on how many rows it scans, so an upserted copy of a base
+        row ties the row exactly and the lower handle wins, as in serving
+        and after compaction."""
+        if not self.live.dirty:
+            return self.ground_truth_masked(q, pred.eval(self.cat, self.num), k)
+        q = np.atleast_2d(np.asarray(q, np.float32))
+        b = q.shape[0]
+        _, ids, _ = _execute_grouped(self.pre_exec, None, self.post_exec, q, [pred] * b, k,
+                                     np.full(b, PRE_FILTER), np.zeros(b), live=self.live)
+        return ids

@@ -194,13 +194,15 @@ class PostFilterExec:
         pred: AnyPredicate,
         k: int,
         est_selectivity: Optional[float] = None,
+        alive: Optional[np.ndarray] = None,
     ) -> SearchResult:
         """Single-predicate entry point; delegates to the row-faithful batched
         core so the per-query and batched paths return identical ids."""
         t0 = time.perf_counter()
         q = np.asarray(queries, np.float32)
         b = q.shape[0]
-        out_d, out_i, rounds = self.search_rows(q, [pred] * b, k, [est_selectivity] * b)
+        out_d, out_i, rounds = self.search_rows(q, [pred] * b, k, [est_selectivity] * b,
+                                                alive=alive)
         n_exp = int(rounds.max()) if rounds.size else 0
         return SearchResult(out_d, out_i, time.perf_counter() - t0, "post", n_exp)
 
@@ -210,8 +212,13 @@ class PostFilterExec:
         preds: Sequence[AnyPredicate],
         k: int,
         ests: Sequence[Optional[float]],
+        alive: Optional[np.ndarray] = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Row-faithful batched post-filter search (per-row predicates).
+
+        ``alive``, when given, is a host bool mask over the index's rows: a
+        candidate whose bit is clear (tombstoned under a live corpus) is
+        dropped like a predicate miss and still counts against the α budget.
 
         Every row runs exactly the (budget, nprobe) doubling schedule a
         dedicated ``search`` call would run; rows whose parameters coincide
@@ -247,6 +254,8 @@ class PostFilterExec:
                     kp = np.zeros(flat.size, bool)
                     if pos.any():
                         kp[pos] = p.eval(self.cat[flat[pos]], self.num[flat[pos]])
+                        if alive is not None:
+                            kp[pos] &= alive[flat[pos]]
                     keep[js] = kp.reshape(len(js), -1)
                 # first k passing candidates per row, in distance order
                 kk = min(k, ids.shape[1])

@@ -88,9 +88,8 @@ class SelectivityEstimator:
         # anything memoising estimates (the engine's PlanCache) keys its
         # validity on this generation
         self.generation = 0
-        # A live corpus (tombstones composed into the exact popcount) is not
-        # ported yet: the port's engine never attaches one, so this stays
-        # None and the exact fast path reads the build-time bitmap.
+        # the engine's LiveCorpus, attached by build_stats(): its tombstones
+        # compose out of the exact fast path's popcount
         self.live = None
 
     # ------------------------------------------------------------------

@@ -5,8 +5,8 @@ Port of ``repro/dist/collectives.py``'s ``merge_topk`` and
 executors' results, which are host arrays already (``SearchResult``), and a
 merge handles at most (B, n_lists * k) candidates, so a round trip through
 the device would only add copies.  The int8 all-reduces of that module
-(``compressed_psum``, ``psum_with_error_feedback``) belong to the sharding
-layer and are not ported yet.
+(``compressed_psum``, ``psum_with_error_feedback``) belong to the training
+path and are not ported yet.
 
 Both merges order candidates by one int64 composite key whose high word is
 the f32 distance's bit pattern (squared-L2 distances are non-negative, so

@@ -7,6 +7,7 @@ from .registry import (
     DEFAULT_BACKENDS,
     BackendSet,
     KnobTier,
+    LiveIndex,
     SearchBackend,
     backend_names,
     make_backend,
@@ -15,6 +16,6 @@ from .registry import (
 )
 
 __all__ = ["FlatIndex", "IVFIndex", "AcornIndex", "IVFPQIndex", "kmeans", "l2_topk",
-           "chunked_masked_topk", "BackendSet", "KnobTier", "SearchBackend",
+           "chunked_masked_topk", "BackendSet", "KnobTier", "LiveIndex", "SearchBackend",
            "DEFAULT_BACKENDS", "backend_names", "make_backend", "register_backend",
            "unregister_backend"]

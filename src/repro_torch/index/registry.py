@@ -22,8 +22,8 @@ Corpora below ``TINY_N`` rows make every backend the exact masked scan:
 the reference's numpy scan (:func:`_exact_masked`) on the CPU, the kernel
 on the card.  :class:`BackendSet` is what the engine holds:
 one built instance per backend and the flattened ``classes()`` enumeration
-``[(backend, tier), ...]`` the planner's routing head indexes into.  The
-live-corpus wrapper ``LiveIndex`` is not ported yet.
+``[(backend, tier), ...]`` the planner's routing head indexes into.
+:class:`LiveIndex` serves any built backend over a mutated corpus.
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ __all__ = [
     "KnobTier",
     "SearchBackend",
     "BackendSet",
+    "LiveIndex",
     "register_backend",
     "unregister_backend",
     "backend_names",
@@ -317,6 +318,68 @@ class AcornBackend(_Backend):
             KnobTier("fast", {"ef": 64}, recall_floor=0.45),
             KnobTier("precise", {"ef": 160}, recall_floor=0.70),
         )
+
+
+class LiveIndex:
+    """Mutation-aware view over one BUILT backend: composes a
+    :class:`~repro_torch.core.corpus.LiveCorpus`'s tombstones into every
+    mask and merges an exact scan of the append segment into the backend's
+    base results, so any registered backend serves a mutated corpus without
+    a rebuild (a tombstoned id never surfaces; the floors hold over the live
+    rows).
+
+    The segment scan is ``fused_masked_topk`` over the segment's device rows
+    (the kernel on the card), whose (query, row) distance and lowest-id tie
+    rule are the exact backends' own: exact tiers stay bit-identical to a
+    fresh build over the compacted corpus.  ``l2_topk`` (``torch.topk``)
+    promises no tie order, so it is not used here."""
+
+    def __init__(self, base: SearchBackend, live):
+        self.base = base
+        self.live = live
+        self.name = base.name
+
+    def build(self, corpus) -> "LiveIndex":
+        self.base.build(corpus)
+        return self
+
+    def search_masked(self, queries, mask, k, knobs=None):
+        q = np.atleast_2d(np.asarray(queries, np.float32))
+        live = self.live
+        base_n = live.base_n
+        alive = live.alive_mask()
+        if mask is None:
+            bmask, smask = alive[:base_n], alive[base_n:]
+        else:
+            m = np.asarray(mask, bool)
+            if m.size == live.n_total:
+                bmask, smask = m[:base_n] & alive[:base_n], m[base_n:] & alive[base_n:]
+            else:
+                # a base-length mask predates the segment: segment rows are
+                # filtered by liveness alone
+                bmask, smask = m & alive[:base_n], alive[base_n:]
+        bd, bi = self.base.search_masked(q, bmask, k, knobs=knobs)
+        if live.seg_n and smask.any():
+            from ..dist.collectives import merge_topk
+
+            seg = live.seg_vectors_dev()
+            out_d, out_i = _empty_result(q.shape[0], k)
+            kk = min(k, live.seg_n)
+            sd, si = fused_masked_topk(torch.as_tensor(q, device=seg.device), seg,
+                                       torch.as_tensor(smask, device=seg.device), kk)
+            si = si.cpu().numpy()
+            out_d[:, :kk] = sd.cpu().numpy()
+            out_i[:, :kk] = np.where(si >= 0, si + base_n, -1)
+            # base part first: equal distances keep handle order
+            bd, bi = merge_topk(np.stack([bd, out_d]), np.stack([bi, out_i]), k)
+        return bd, bi
+
+    def memory_bytes(self) -> int:
+        seg = self.live.seg_n * self.live.dim * 4
+        return int(self.base.memory_bytes() + seg + self.live.tomb.nbytes)
+
+    def knob_grid(self) -> Tuple[KnobTier, ...]:
+        return self.base.knob_grid()
 
 
 # ----------------------------------------------------------------------

@@ -1,4 +1,4 @@
-from .engine import Request, ServeEngine
+from .engine import Request, ServeEngine, ShardedANNEngine
 from .retrieval import RetrievalAugmentedServer
 
-__all__ = ["ServeEngine", "Request", "RetrievalAugmentedServer"]
+__all__ = ["ServeEngine", "Request", "RetrievalAugmentedServer", "ShardedANNEngine"]

@@ -8,17 +8,27 @@ batch.  Greedy ``argmax`` keeps the output deterministic; each step copies
 the chosen tokens to the host, as the reference does, to apply EOS and the
 per-request budgets, and the batch stops stepping once every slot is done.
 
-``ShardedANNEngine`` is not ported yet (ROADMAP Queue 1 item 9).
+``ShardedANNEngine`` is the sharded filtered-ANN path: the corpus is split
+into contiguous shards (``FilteredANNEngine.shard_corpus``), each query is
+planned once centrally, every shard runs the same plan over its rows, and
+the per-shard top-k lists merge exactly.  Writes go to the central engine
+(the source of truth for every row) and to the owning shard.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import time
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["Request", "ServeEngine"]
+from ..core.engine import FilteredANNEngine, PlannedResult, package_results
+from ..core.plan import collapse_clause_results, expand_for_execution
+from ..core.predicates import AnyPredicate
+from ..dist.collectives import merge_topk_unique
+
+__all__ = ["Request", "ServeEngine", "ShardedANNEngine"]
 
 
 @dataclasses.dataclass
@@ -102,3 +112,168 @@ class ServeEngine:
                     r.done = True
         for r in batch:
             r.done = True
+
+
+class ShardedANNEngine:
+    """Sharded filtered-ANN serving: plan once, fan out, merge top-k.
+
+    Wraps a :class:`FilteredANNEngine` (``build_stats()`` at least;
+    ``fit()`` for a trained planner).  The corpus is split into
+    ``n_shards`` contiguous shards; without ``n_shards`` an engine on a CUDA
+    device takes ``torch.cuda.device_count()`` shards and a CPU engine 1.
+    Each query is planned centrally, run with that plan on every shard, and
+    the shards' lists merge by (distance, global id): handles are unique
+    across shards, so equal distances go to the lower handle, the order the
+    central engine's base-first merge gives (a segment row is placed on
+    shard ``handle % n_shards``, so shard order alone would not be).
+    """
+
+    def __init__(self, engine: FilteredANNEngine, n_shards: Optional[int] = None,
+                 n_lists: Optional[int] = None):
+        self.engine = engine
+        if n_shards is None:
+            n_shards = torch.cuda.device_count() if engine.device.type == "cuda" else 1
+        self.n_shards = max(1, n_shards)
+        self._n_lists = n_lists
+        self.shards = engine.shard_corpus(self.n_shards, n_lists=n_lists)
+        self._build_locators()
+
+    # ------------------------------------------------------------------
+    def _build_locators(self) -> None:
+        """Global handle -> (owning shard, shard-local handle).  Positions in
+        ``shard.ids`` ARE the local handles (``upsert_local`` appends to
+        both in lockstep; deletes never remove entries)."""
+        n_total = self.engine.live.n_total
+        self._loc_shard = np.full(n_total, -1, np.int32)
+        self._loc_pos = np.full(n_total, -1, np.int64)
+        for si, s in enumerate(self.shards):
+            self._loc_shard[s.ids] = si
+            self._loc_pos[s.ids] = np.arange(len(s.ids), dtype=np.int64)
+
+    def _grow_locators(self, n_total: int) -> None:
+        pad = n_total - len(self._loc_shard)
+        if pad > 0:
+            self._loc_shard = np.concatenate([self._loc_shard, np.full(pad, -1, np.int32)])
+            self._loc_pos = np.concatenate([self._loc_pos, np.full(pad, -1, np.int64)])
+
+    def _delete_on_shards(self, gids: np.ndarray) -> None:
+        gids = np.asarray(gids, np.int64).ravel()
+        gids = gids[(gids >= 0) & (gids < len(self._loc_shard))]
+        for si, s in enumerate(self.shards):
+            sel = gids[self._loc_shard[gids] == si]
+            if sel.size:
+                s.delete_local(self._loc_pos[sel])
+
+    def _place(self, gids: np.ndarray, v: np.ndarray, c: np.ndarray, m: np.ndarray) -> None:
+        """Append rows with global handles ``gids`` to their owning shards
+        (``handle % n_shards``)."""
+        self._grow_locators(self.engine.live.n_total)
+        owner = (gids % len(self.shards)).astype(np.int32)
+        for si, s in enumerate(self.shards):
+            rows = np.nonzero(owner == si)[0]
+            if rows.size:
+                lh = s.upsert_local(v[rows], c[rows], m[rows], global_ids=gids[rows])
+                self._loc_shard[gids[rows]] = si
+                self._loc_pos[gids[rows]] = lh
+
+    # ------------------------------------------------------------------
+    def upsert(self, vectors: np.ndarray, cat: np.ndarray, num: np.ndarray,
+               ids: Optional[np.ndarray] = None) -> np.ndarray:
+        """Insert (or, with ``ids``, replace) rows: the central engine
+        assigns the global handles, then each row goes to its shard.
+        Returns the global handles."""
+        v = np.atleast_2d(np.asarray(vectors, np.float32))
+        c = np.atleast_2d(np.asarray(cat))
+        m = np.atleast_2d(np.asarray(num))
+        gids = self.engine.upsert(v, c, m, ids=ids)
+        if ids is not None:
+            # the central engine tombstoned the replaced handles already
+            self._delete_on_shards(np.asarray(ids))
+        self._place(gids, v, c, m)
+        return gids
+
+    def delete(self, ids: np.ndarray) -> np.ndarray:
+        """Tombstone global handles centrally and on their owning shards;
+        returns the newly deleted handles."""
+        fresh = self.engine.delete(ids)
+        self._delete_on_shards(fresh)
+        return fresh
+
+    def needs_compaction(self) -> bool:
+        return self.engine.needs_compaction()
+
+    def compact(self) -> np.ndarray:
+        """Fold segment + tombstones into a rebuilt central engine, then
+        re-shard it.  The old shards are dropped first (they hold views of
+        the old device corpus and their own IVFs).  Returns ``id_map``."""
+        self.shards = []
+        id_map = self.engine.compact()
+        self.shards = self.engine.shard_corpus(self.n_shards, n_lists=self._n_lists)
+        self._build_locators()
+        return id_map
+
+    def maybe_compact(self) -> Optional[np.ndarray]:
+        if self.engine.live.dirty and self.needs_compaction():
+            return self.compact()
+        return None
+
+    def reshard(self, n_shards: int) -> "ShardedANNEngine":
+        """Repartition a live deployment onto ``n_shards`` shards in place
+        (dead-shard recovery: ``dist.fault`` and ``dist.elastic.replan_mesh``
+        decide the count, this applies it).  The base corpus re-partitions
+        through ``shard_corpus``, segment rows are placed again by the same
+        owner rule, and tombstones re-apply.  Deterministic: shard builds
+        are seeded by shard index."""
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        live = self.engine.live
+        self.n_shards = n_shards
+        self.shards = []
+        self.shards = self.engine.shard_corpus(n_shards, n_lists=self._n_lists)
+        self._build_locators()          # base rows; segment rows next
+        if live.seg_n:
+            gids = np.arange(live.base_n, live.n_total, dtype=np.int64)
+            self._place(gids, live.seg_vectors(), np.atleast_2d(live.seg_cat()),
+                        np.atleast_2d(live.seg_num()))
+        if live.n_deleted:
+            self._delete_on_shards(np.nonzero(~live.alive_mask())[0])
+        return self
+
+    # ------------------------------------------------------------------
+    def query(self, q: np.ndarray, pred: AnyPredicate, k: int = 10) -> PlannedResult:
+        plan, plan_overhead = self.engine.make_plan(pred, k)
+        return self._fanout(np.atleast_2d(np.asarray(q, np.float32)), [pred], k, [plan],
+                            plan_overhead)[0]
+
+    def explain(self, pred: AnyPredicate, k: int = 10) -> str:
+        """The central planner's plan for ``(pred, k)`` (plans do not depend
+        on the shards)."""
+        return self.engine.explain(pred, k)
+
+    def batch_query(self, queries: np.ndarray, preds: Sequence[AnyPredicate],
+                    k: int = 10) -> List[PlannedResult]:
+        """Plan the batch once, run it on every shard, merge all shards' (B, k)
+        lists in one call.  Ids equal B :meth:`query` calls; ``elapsed`` is
+        the fan-out + merge wall time split evenly across rows."""
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        plans, plan_overhead = self.engine.make_plan_batch(preds, k)
+        return self._fanout(queries, preds, k, plans, plan_overhead)
+
+    def _fanout(self, queries: np.ndarray, preds: Sequence[AnyPredicate], k: int,
+                plans, plan_overhead: float) -> List[PlannedResult]:
+        b = len(preds)
+        plan_share = plan_overhead / max(b, 1)
+        exp_rows, exp_preds, decisions, ests, routes, row_map = (
+            expand_for_execution(preds, plans))
+        identity = len(exp_preds) == b and all(len(m) == 1 for m in row_map)
+        xq = queries if identity else queries[exp_rows]
+        t0 = time.perf_counter()
+        per_shard = [s.search_batch(xq, exp_preds, k, decisions, ests, routes=routes)
+                     for s in self.shards]
+        d, i = merge_topk_unique(np.stack([r[0] for r in per_shard]),
+                                 np.stack([r[1] for r in per_shard]), k)
+        rounds = np.max(np.stack([r[2] for r in per_shard]), axis=0)
+        if not identity:
+            d, i, rounds = collapse_clause_results(d, i, rounds, row_map, k)
+        share = (time.perf_counter() - t0) / max(b, 1) + plan_share
+        return package_results(d, i, rounds, plans, share, plan_share)

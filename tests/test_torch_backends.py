@@ -6,8 +6,9 @@ The contract of tests/backend_conformance.py, parametrised over the port's
 at every tier, bitwise row independence on a tie-heavy corpus, mask safety
 without duplicates, empty / tiny / all-masked / fewer-survivors edges, the
 sharded merge and the DNF union merge (bitwise at the exact tier), registry
-mechanics and the IVF-PQ memory reduction.  The live-corpus cases wait for
-``LiveIndex``.
+mechanics, the IVF-PQ memory reduction, and every backend serving a
+mutated corpus through ``LiveIndex`` (no tombstoned id, fresh upserts
+found, exact tiers bit-identical to a fresh build after compaction).
 
 Then parity with the reference on carried state (its k-means differs from
 the port's, so layouts are loaded, not rebuilt): IVF-PQ tables and search,
@@ -23,10 +24,16 @@ from repro.core import Or as RefOr
 from repro.core import trainer as ref_trainer
 from repro.index import make_backend as ref_make_backend
 from repro_torch import carry
-from repro_torch.core import EngineConfig, FilteredANNEngine, Or, gen_queries
+from repro_torch.core import EngineConfig, FilteredANNEngine, LiveCorpus, Or, gen_queries
 from repro_torch.data import make_dataset
 from repro_torch.dist.collectives import merge_topk, merge_topk_unique
-from repro_torch.index import BackendSet, make_backend, register_backend, unregister_backend
+from repro_torch.index import (
+    BackendSet,
+    LiveIndex,
+    make_backend,
+    register_backend,
+    unregister_backend,
+)
 from repro_torch.index.registry import (
     DEFAULT_BACKENDS,
     TINY_N,
@@ -338,6 +345,133 @@ def test_backendset_memory_and_pq_reduction(built, corpus):
 
 
 # ----------------------------------------------------------------------
+# mutate-then-search: every backend serves a live corpus via LiveIndex
+# ----------------------------------------------------------------------
+def _live_over(x, device=DEV):
+    n = len(x)
+    return LiveCorpus(x, np.zeros((n, 1), np.int32), np.zeros((n, 1), np.float32),
+                      device=device)
+
+
+def _wrap_attrs(rows):
+    b = len(np.atleast_2d(rows))
+    return np.zeros((b, 1), np.int32), np.zeros((b, 1), np.float32)
+
+
+@pytest.mark.parametrize("name", DEFAULT_BACKENDS)
+def test_mutate_delete_excludes_tombstones(built, corpus, name):
+    """After deleting the oracle's own top hits, no tier surfaces a
+    tombstoned id, and recall against the LIVE oracle clears each floor."""
+    x, q, mask = corpus
+    live = _live_over(x)
+    b = LiveIndex(built[name], live)
+    _, truth = _exact_masked(x, q, mask, K)
+    dead = np.unique(truth[truth >= 0])[:40]
+    live.delete(dead)
+    live_mask = mask.copy()
+    live_mask[dead] = False
+    _, live_truth = _exact_masked(x, q, live_mask, K)
+    for tier in b.knob_grid():
+        _, ids = b.search_masked(q, mask, K, knobs=tier.knobs)
+        valid = ids[ids >= 0]
+        assert not np.isin(valid, dead).any(), f"{name}:{tier.name} surfaced a tombstoned id"
+        assert mask[valid].all()
+        r = _recall(ids, live_truth)
+        assert r >= tier.recall_floor, f"{name}:{tier.name} live recall {r:.3f} < {tier.recall_floor}"
+
+
+@pytest.mark.parametrize("name", DEFAULT_BACKENDS)
+def test_mutate_upsert_returns_new_ids(built, corpus, name):
+    """A just-upserted row at distance zero from its query surfaces at every
+    tier: the segment is scanned exactly whatever the base backend is."""
+    x, q, _ = corpus
+    live = _live_over(x)
+    b = LiveIndex(built[name], live)
+    handles = live.upsert(q[:4], *_wrap_attrs(q[:4]))
+    for tier in b.knob_grid():
+        _, ids = b.search_masked(q[:4], None, K, knobs=tier.knobs)
+        for j in range(4):
+            assert handles[j] in ids[j], f"{name}:{tier.name} missed the fresh upsert (row {j})"
+
+
+def test_live_index_on_card(corpus):
+    """On the card LiveIndex over the flat backend launches the masked L2
+    kernel once for the base and once for the segment, and equals one
+    kernel scan of base + segment under the live mask bitwise, and the
+    numpy scan up to exact ties."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode (chip_smoke.py runs it)")
+    from repro_torch.kernels import fused_masked_topk, ops
+
+    x, q, mask = corpus
+    live = _live_over(x, device="cuda")
+    b = LiveIndex(make_backend("flat", x, seed=0, device="cuda"), live)
+    live.upsert(q[:4] + 0.01, *_wrap_attrs(q[:4]))
+    live.upsert(x[:8], *_wrap_attrs(x[:8]))          # exact copies of base rows
+    live.delete(np.arange(0, len(x), 7))
+    m = np.concatenate([mask, np.ones(live.seg_n, bool)])
+    before = ops.kernel_launches()["masked_l2_topk"]
+    d, i = b.search_masked(q, m, K)
+    assert ops.kernel_launches()["masked_l2_topk"] == before + 2
+    keep = m & live.alive_mask()
+    x_all = torch.cat([torch.as_tensor(x, device="cuda"), live.seg_vectors_dev()])
+    wd, wi = fused_masked_topk(torch.as_tensor(q, device="cuda"), x_all,
+                               torch.as_tensor(keep, device="cuda"), K)
+    np.testing.assert_array_equal(i, wi.cpu().numpy())
+    np.testing.assert_array_equal(d, wd.cpu().numpy())
+    pd, pi = _exact_masked(np.concatenate([x, live.seg_vectors()]), q, keep, K)
+    np.testing.assert_array_equal(i, pi)
+    np.testing.assert_allclose(d, pd, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", DEFAULT_BACKENDS)
+def test_mutate_compaction_id_stable(built, corpus, name):
+    """Exact tiers of the live view, translated through ``id_map``, equal a
+    fresh build over the compacted corpus bit for bit (and the reference's
+    LiveIndex up to ties, for flat); approximate tiers clear their floor
+    against the compacted oracle."""
+    from repro.core import LiveCorpus as RefLiveCorpus
+    from repro.index import LiveIndex as RefLiveIndex
+
+    x, q, mask = corpus
+    live = _live_over(x)
+    b = LiveIndex(built[name], live)
+    rng = np.random.default_rng(11)
+    dead = rng.choice(len(x), 60, replace=False)
+    live.delete(dead)
+    new_rows = (q[:6] + 0.01 * rng.normal(0, 1, (6, x.shape[1]))).astype(np.float32)
+    live.upsert(new_rows, *_wrap_attrs(new_rows))
+    lm = np.concatenate([mask, np.ones(live.seg_n, bool)])
+    cv, _, _, id_map = live.compacted()
+    alive_h = np.nonzero(id_map >= 0)[0]
+    fm = np.zeros(len(cv), bool)
+    fm[id_map[alive_h]] = lm[alive_h]
+    fresh = make_backend(name, cv, seed=0, device=DEV)
+    _, ctruth = _exact_masked(cv, q, fm, K)
+    if name == "flat":
+        rlive = RefLiveCorpus(x, *_wrap_attrs(x))
+        rlive.delete(dead)
+        rlive.upsert(new_rows, *_wrap_attrs(new_rows))
+        rb = RefLiveIndex(ref_make_backend("flat", x, seed=0), rlive)
+    for tier in b.knob_grid():
+        ld, li = b.search_masked(q, lm, K, knobs=tier.knobs)
+        tr = np.where(li >= 0, id_map[np.maximum(li, 0)], -1).astype(np.int32)
+        if tier.recall_floor >= 0.99:
+            fd, fi = fresh.search_masked(q, fm, K, knobs=tier.knobs)
+            np.testing.assert_array_equal(tr, fi, err_msg=f"{name}:{tier.name}")
+            np.testing.assert_array_equal(ld, fd)
+        else:
+            r = _recall(tr, ctruth)
+            assert r >= tier.recall_floor, (
+                f"{name}:{tier.name} post-compaction recall {r:.3f} < {tier.recall_floor}")
+        if name == "flat":
+            rd, ri = rb.search_masked(q, lm, K, knobs=tier.knobs)
+            _same_up_to_ties(q, li, ld, np.asarray(ri), np.asarray(rd))
+
+
+# ----------------------------------------------------------------------
 # parity with the reference on carried state
 # ----------------------------------------------------------------------
 def _carried(name, corpus, ref_built):
@@ -490,7 +624,7 @@ def test_routed_engine_plans_and_answers_equal_reference(routed):
         r = port.query(qs[i], preds[i], K)
         rr = ref.query(qs[i], rpreds[i], K)
         assert (r.result.backend, r.result.knob) == (rr.result.backend, rr.result.knob)
-        _same_up_to_ties(r.result.ids, r.result.dists, rr.result.ids, rr.result.dists)
+        _same_up_to_ties(qs[i], r.result.ids, r.result.dists, rr.result.ids, rr.result.dists)
         np.testing.assert_array_equal(batch[i].result.ids, r.result.ids)
         mask = preds[i].eval(ds.cat, ds.num)
         ids = r.result.ids[r.result.ids >= 0]

@@ -8,8 +8,12 @@ selectivity feature, loaded into the reference and read back from it).
 The reference ``fit`` is not run: its labels are wall-clock races.
 
 Over 40 ``gen_queries`` queries, equal between the two engines:
-selectivity estimates, decisions, and result ids of every plan (up to
-exact distance ties), from ``query`` and from ``batch_query``.
+selectivity estimates, decisions, and result ids of every plan up to ties,
+from ``query`` and from ``batch_query``.  Distances are held to
+``distance_band``: the 2e-4 band plus the cancellation of the expansion
+form near a corpus row.  Ids may differ only among rows whose distances
+lie within that cancellation term of each other, which two correct fp32
+evaluations may order either way.
 """
 import numpy as np
 import pytest
@@ -43,9 +47,9 @@ def _threshold_head(sel_cut: float) -> dict:
             "meta": np.asarray([PlannerFeatures.N_FEATURES, 0], np.int32)}
 
 
-@pytest.fixture(scope="module")
-def engines():
-    ds = make_dataset("arxiv", "4000", seed=0)
+def _engines(ds):
+    """Both engines over ``ds`` with the reference's IVF, GBM and a
+    threshold planner head; the served queries and both packages' predicates."""
     n = N_TRAIN + N_SERVE
     q, preds, sels = gen_queries(ds.vectors, ds.cat, ds.num, n, kinds=ds.filter_kinds, seed=1)
     _, rpreds, _ = ref_trainer.gen_queries(ds.vectors, ds.cat, ds.num, n,
@@ -67,16 +71,57 @@ def engines():
     return ds, port, ref, q[serve], preds[serve], rpreds[serve]
 
 
-def _same_up_to_ties(ids_a, d_a, ids_b, d_b):
-    """Ids equal, except where the two answers differ only among ids at
-    the same distance (an exact tie)."""
-    np.testing.assert_allclose(d_a, d_b, **TOL)
-    for r in range(ids_a.shape[0]):
+@pytest.fixture(scope="module")
+def engines():
+    return _engines(make_dataset("arxiv", "4000", seed=0))
+
+
+def cancellation(q):
+    """How far two correct fp32 evaluations of max(|q|^2+|x|^2-2q.x, 0) may
+    differ near query q from cancellation of the expansion form: about
+    sqrt(dim) roundings of terms the size of |q|^2 + |x|^2 (~2|q|^2 there)."""
+    q = np.asarray(q, np.float64).reshape(-1)
+    return 4.0 * np.sqrt(q.size) * 2.0 ** -24 * 2.0 * float(q @ q)
+
+
+def distance_band(q, d):
+    """Distance tolerance between the packages for query q at distance d:
+    the 2e-4 band plus :func:`cancellation`."""
+    return TOL["atol"] + TOL["rtol"] * np.abs(d) + cancellation(q)
+
+
+def _same_up_to_ties(q, ids_a, d_a, ids_b, d_b):
+    """Two packages' (B, k) answers agree: distances within
+    ``distance_band`` of query row ``q`` (one query, or one per row), and
+    ids equal except among rows that two correct fp32 evaluations may
+    order either way, those whose distances lie within ``cancellation(q)``
+    of each other.  An id at another rank in the other answer must tie
+    there with the row at its own rank; an id missing from the other answer
+    must tie with that answer's k-th distance."""
+    q = np.atleast_2d(np.asarray(q, np.float32))
+    fin = np.isfinite(d_b)
+    np.testing.assert_array_equal(np.isfinite(d_a), fin)
+    for r in range(d_b.shape[0]):
+        qr = q[r if q.shape[0] > 1 else 0]
+        band = distance_band(qr, d_b[r][fin[r]])
+        gap = np.abs(d_a[r][fin[r]].astype(np.float64) - d_b[r][fin[r]])
+        assert np.all(gap <= band), f"row {r}: {d_a[r]} vs {d_b[r]}"
         if np.array_equal(ids_a[r], ids_b[r]):
             continue
-        for da, ia, ib in zip(d_a[r], ids_a[r], ids_b[r]):
-            if ia != ib:
-                assert np.sum(d_a[r] == da) > 1, f"row {r}: {ids_a[r]} vs {ids_b[r]}"
+        tie = cancellation(qr)
+        for (ix, dx), (iy, dy) in (((ids_a[r], d_a[r]), (ids_b[r], d_b[r])),
+                                   ((ids_b[r], d_b[r]), (ids_a[r], d_a[r]))):
+            kth = dy[np.isfinite(dy)].max() if np.isfinite(dy).any() else np.inf
+            for j in np.flatnonzero(ix != iy):
+                if ix[j] < 0:
+                    continue
+                where = np.flatnonzero(iy == ix[j])
+                if where.size:      # moved among tied rows of the other answer
+                    gap = abs(float(dy[where[0]]) - float(dy[j]))
+                else:               # missing: tied with the other's k-th row
+                    gap = abs(float(dx[j]) - float(kth))
+                assert gap <= tie, (
+                    f"row {r}: {ids_a[r]} {d_a[r]} vs {ids_b[r]} {d_b[r]}")
 
 
 def test_estimates_and_decisions_equal(engines):
@@ -100,7 +145,7 @@ def test_query_ids_equal_reference(engines):
         rr = ref.query(q[i], rpreds[i], K)
         assert r.plan.strategy == rr.plan.strategy
         seen.add(r.plan.strategy)
-        _same_up_to_ties(r.result.ids, r.result.dists, rr.result.ids, rr.result.dists)
+        _same_up_to_ties(q[i], r.result.ids, r.result.dists, rr.result.ids, rr.result.dists)
         assert r.result.n_expansions == rr.result.n_expansions
     assert seen == {"ipre", "post"}
 
@@ -113,7 +158,7 @@ def test_every_executor_equals_reference(engines, exec_name):
         kw = {"est_selectivity": 0.05} if exec_name == "post_exec" else {}
         a = ex.search(q[i:i + 1], preds[i], K, **kw)
         b = rex.search(q[i:i + 1], rpreds[i], K, **kw)
-        _same_up_to_ties(a.ids, a.dists, b.ids, b.dists)
+        _same_up_to_ties(q[i], a.ids, a.dists, b.ids, b.dists)
 
 
 def test_batch_query_equals_query_and_reference(engines):
@@ -122,17 +167,26 @@ def test_batch_query_equals_query_and_reference(engines):
     rbatch = ref.batch_query(q, rpreds, K)
     for i, (b, rb) in enumerate(zip(batch, rbatch)):
         assert b.plan.decision == rb.plan.decision
-        _same_up_to_ties(b.result.ids, b.result.dists, rb.result.ids, rb.result.dists)
+        _same_up_to_ties(q[i], b.result.ids, b.result.dists, rb.result.ids, rb.result.dists)
         single = port.query(q[i], preds[i], K)
         np.testing.assert_array_equal(b.result.ids, single.result.ids)
         np.testing.assert_array_equal(b.result.dists, single.result.dists)
 
 
+def _host_dists(x, q, ids):
+    """fp32 squared distances of ``ids`` (-1 -> inf) to query ``q``, one
+    formula for both packages' id lists."""
+    d = ((x[np.maximum(ids, 0)] - q) ** 2).sum(-1).astype(np.float32)
+    return np.where(ids >= 0, d, np.inf)
+
+
 def test_ground_truth_equals_reference(engines):
-    _, port, ref, q, preds, rpreds = engines
+    ds, port, ref, q, preds, rpreds = engines
     for i in range(0, len(preds), 3):
-        np.testing.assert_array_equal(port.ground_truth(q[i], preds[i], K),
-                                      ref.ground_truth(q[i], rpreds[i], K))
+        a = port.ground_truth(q[i], preds[i], K)
+        b = np.asarray(ref.ground_truth(q[i], rpreds[i], K))
+        _same_up_to_ties(q[i], a, _host_dists(ds.vectors, q[i], a),
+                         b, _host_dists(ds.vectors, q[i], b))
 
 
 def test_exact_plans_equal_ground_truth(engines):
@@ -153,24 +207,31 @@ def test_label_query_and_fit_run(engines):
     assert eng.query(q[9], preds[9], K).result.ids.shape == (1, K)
 
 
-def test_outside_the_slice_raises(engines):
-    """Only the live-corpus mutations are outside the port so far; ``Or``
-    predicates and ``EngineConfig.backends`` are held to the reference in
-    tests/test_torch_plan_dnf.py and tests/test_torch_backends.py."""
-    ds, port, _, q, preds, _ = engines
-    with pytest.raises(NotImplementedError):
-        port.upsert(ds.vectors[:1], ds.cat[:1], ds.num[:1])
-    with pytest.raises(NotImplementedError):
-        port.delete(np.arange(3))
-    with pytest.raises(NotImplementedError):
-        port.compact()
+def test_cancellation_band_regression():
+    """The corpus that PYTHONHASHSEED=34 gives the fixture (its generator
+    seed is 0 + hash("arxiv") % 2**16 = 64924 there), rebuilt under any
+    hash seed.  Served query 24 sits ~1.1 from a corpus row with
+    |q|^2 ~ 453: both packages plan ipre and return the same ids, and their
+    nearest distances differ by 2^-11, outside the flat 2e-4 band and
+    inside ``distance_band``'s cancellation term."""
+    ds = make_dataset("arxiv", "4000", seed=64924 - hash("arxiv") % 2**16)
+    _, port, ref, q, preds, rpreds = _engines(ds)
+    r, rr = port.query(q[24], preds[24], K), ref.query(q[24], rpreds[24], K)
+    assert r.plan.strategy == rr.plan.strategy == "ipre"
+    np.testing.assert_array_equal(r.result.ids, rr.result.ids)
+    assert r.result.n_expansions == rr.result.n_expansions == 0
+    gap = np.abs(r.result.dists.astype(np.float64) - rr.result.dists)
+    flat = TOL["atol"] + TOL["rtol"] * np.abs(rr.result.dists)
+    assert gap[0, 0] > flat[0, 0]
+    assert np.all(gap <= distance_band(q[24], rr.result.dists))
+    _same_up_to_ties(q[24], r.result.ids, r.result.dists, rr.result.ids, rr.result.dists)
 
 
 def test_post_recall_equals_reference_at_reduced_scale():
     """Both packages' post-filter executors at arxiv "reduced" scale
     (120,000 rows) over the reference's IVF layout, 32 gen_queries queries
-    at their true selectivity: the same ids per row apart from exact ties,
-    so the same recall@10 against exact ground truth (printed with -s)."""
+    at their true selectivity: the same ids per row up to ties, and the
+    same recall@10 against exact ground truth (printed with -s)."""
     import torch
 
     from repro.core.executors import PostFilterExec as RefPost
@@ -193,7 +254,7 @@ def test_post_recall_equals_reference_at_reduced_scale():
     for i in range(n):
         a = post.search(q[i:i + 1], preds[i], K, est_selectivity=float(sels[i]))
         b = rpost.search(q[i:i + 1], rpreds[i], K, est_selectivity=float(sels[i]))
-        _same_up_to_ties(a.ids, a.dists, b.ids, b.dists)
+        _same_up_to_ties(q[i], a.ids, a.dists, b.ids, b.dists)
         assert a.n_expansions == b.n_expansions
         m = torch.as_tensor(preds[i].eval(ds.cat, ds.num))
         _, ti = l2_topk(torch.as_tensor(q[i:i + 1]), x, K, m)

@@ -47,7 +47,8 @@ def test_importing_every_module_loads_no_jax_or_repro():
                 "repro_torch.serve.engine", "repro_torch.serve.retrieval",
                 "repro_torch.kernels.decode_attention", "repro_torch.dist.collectives",
                 "repro_torch.index.pq", "repro_torch.index.acorn",
-                "repro_torch.index.registry", "torch"):
+                "repro_torch.index.registry", "repro_torch.core.corpus",
+                "repro_torch.dist.fault", "repro_torch.dist.elastic", "torch"):
         assert mod in loaded, mod
 
 

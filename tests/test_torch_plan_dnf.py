@@ -36,6 +36,7 @@ from repro_torch.core import (
 )
 from repro_torch.data import make_dataset
 from repro_torch.dist.collectives import merge_topk, merge_topk_unique
+from test_torch_engine import _same_up_to_ties as _same_within_band
 
 K = 10
 EXACT = (PRE_FILTER, INDEXED_PRE)
@@ -144,6 +145,45 @@ def test_per_disjunct_bit_identical_flat(eng, ds):
         np.testing.assert_array_equal(out.result.ids, ref.ids)
         np.testing.assert_array_equal(out.result.dists, ref.dists)
         np.testing.assert_array_equal(out.result.ids, eng.ground_truth(q, dnf, K))
+
+
+def test_per_disjunct_bit_identical_live(ds, ref_eng):
+    """A mutated corpus: upserted copies of 40 base rows land in the append
+    segment, 25 base rows are tombstoned.  The per-disjunct union equals
+    the live ground truth bit for bit, every copy ties its base row exactly
+    and comes right after it, and the union equals the reference's live
+    union up to ties (the reference's own live test trips over that tie:
+    its two scans round a row and its copy differently)."""
+    e = FilteredANNEngine(ds.vectors, ds.cat, ds.num,
+                          EngineConfig(n_lists=32, seed=0, device="cpu")).build()
+    r = RefEngine(ds.vectors, ds.cat, ds.num, RefConfig(n_lists=32, seed=0)).build()
+    clauses = _low_sel_conjunctions(ds, want=2)
+    dnf = Or(tuple(clauses))
+    rdnf = rc.Or(tuple(rc.Predicate(labels=tuple(rc.LabelEq(t.attr, t.code) for t in c.labels))
+                       for c in clauses))
+    rng = np.random.default_rng(17)
+    n = ds.vectors.shape[0]
+    passing = np.flatnonzero(dnf.eval(ds.cat, ds.num) & (np.arange(n) >= 25))
+    rows = rng.permutation(np.union1d(rng.choice(n, 36, replace=False),
+                                      rng.choice(passing, 4, replace=False)))
+    for eng_ in (e, r):
+        eng_.upsert(ds.vectors[rows], ds.cat[rows], ds.num[rows])
+        eng_.delete(np.arange(25))
+    assert e.live.dirty
+    copy_of = dict(zip(rows.tolist(), range(n, n + rows.size)))
+    picks = [ds.vectors[i] for i in rng.integers(n, size=4)]
+    picks += [ds.vectors[i] + 1e-3 for i in rows[np.isin(rows, passing)][:2]]
+    for q in picks:
+        q = np.asarray(q, np.float32)
+        out = e.query(q, dnf, K)
+        np.testing.assert_array_equal(out.result.ids, e.ground_truth(q, dnf, K))
+        row = out.result.ids[0].tolist()
+        for base, cp in copy_of.items():
+            if base in row and cp in row:
+                assert row.index(cp) == row.index(base) + 1
+                assert out.result.dists[0, row.index(cp)] == out.result.dists[0, row.index(base)]
+        ro = r.query(q, rdnf, K)
+        _same_within_band(q, out.result.ids, out.result.dists, ro.result.ids, ro.result.dists)
 
 
 def test_cross_clause_dedup(eng, ds):

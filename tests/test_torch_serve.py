@@ -178,17 +178,18 @@ def test_rag_retrieval_equals_reference(small_model, engines):
     pairs += list(zip(preds[:6], rpreds[:6]))
     tokens = _prompts(cfg, 5, [8, 8, 8])
     tokens = np.stack(tokens)
-    np.testing.assert_allclose(rag.embed(tokens), np.asarray(ref_rag._embed(params, tokens)),
+    emb = rag.embed(tokens)
+    np.testing.assert_allclose(emb, np.asarray(ref_rag._embed(params, tokens)),
                                rtol=1e-4, atol=1e-5)
     strategies = set()
     for pred, rpred in pairs:
         outs, routs = rag.retrieve(tokens, pred, k=5), ref_rag.retrieve(tokens, rpred, k=5)
         assert len(outs) == len(routs) == 3
-        for out, rout in zip(outs, routs):
+        for j, (out, rout) in enumerate(zip(outs, routs)):
             assert out.est_selectivity == rout.est_selectivity
             assert out.decision == rout.decision
             strategies.add(out.plan.strategy)
-            _same_up_to_ties(out.result.ids, out.result.dists,
+            _same_up_to_ties(emb[j] * rag.scale, out.result.ids, out.result.dists,
                              rout.result.ids, rout.result.dists)
             ids = out.result.ids[0]
             ids = ids[ids >= 0]
