@@ -34,7 +34,7 @@ Phases, each printed as it runs:
   4c. a routed engine at the same size, backends flat, ivf, ivfpq and
      acorn (the ivf backend shares the engine's IVF): first the flat
      backend below TINY_N rows on the card (the kernel against the numpy
-     scan); build seconds and memory per backend, fit on the first 32 of
+     scan); build seconds and memory per backend, fit on the first 16 of
      phase 4's training queries (8 routing classes raced per query; ACORN's
      host search makes a query cost seconds), phase 4's 200 served
      queries and 32 unions served;
@@ -66,6 +66,35 @@ Phases, each printed as it runs:
      engines compacted, exact rows equal the live ones through id_map and a
      fresh build's, bitwise; upsert and delete rows/s, compaction s, peak
      memory; everything is freed before phase 6;
+  4e. the serving runtime, checkpoints, observability and the fleet at the
+     same size, on a plain engine with phase 4's planner, GBM and IVF
+     layout carried (phase 4's engine takes no writes): (a) runtime_bench's
+     Poisson and bursty traces of 400 reads at 0.5, 2 and 8 x the
+     single-request virtual capacity (a pool of 16 of phase 4's served
+     predicates, zipf 1.2, k = 10) through OnlineRuntime(max_batch=64,
+     max_wait=0.005), each replayed twice: every request answered once,
+     equal batches, counters and ids, every id passing its predicate,
+     exact rows equal to an l2_topk truth up to ties; measured QPS beside a
+     per-request query() loop, VIRTUAL latencies and deadline hit rates,
+     the plan mix, the device's idle share over one replay; (b) a trace
+     with write_frac 0.1, every batch checked on the spot after its
+     launches are counted (no tombstoned id, exact rows equal the live
+     ground truth bitwise and an l2_topk live truth up to ties), then
+     mutation_state() through the Checkpointer (save, save_async) onto a
+     fresh engine: its rows equal the live engine's bitwise; (c) Tracer,
+     RecallProbe and OnlineFeedback on one runtime: two cold replays give
+     equal span trees, the execute spans' kernel_* attrs add up to how
+     far stats()' kernel_dispatch moved, prometheus_text() parses;
+     span_summary beside the
+     profiler's device-busy time, probe recall, feedback stats, the smem
+     budget gauges; (d) fleet_bench's headline: three tenants over an even
+     split of the rows, each fitted on 64 of phase 4's training queries,
+     FleetRuntime (DRR, admission, autoscale) twice against the shared
+     queue: equal replays, exact rows equal each tenant's truth up to ties
+     through the reshards, Fleet.save/restore onto fresh collections
+     bitwise; quiet tenants' SLO hit rates (virtual) beside fleet_bench's
+     targets, scale events, build, fit and reshard seconds; everything is
+     freed before phase 6;
   6. LM serving: qwen3-14b at full width and depth in bf16 (random weights
      from a seed), 16 requests through ServeEngine in 8 slots; decode
      launches equal 40 x steps, the kernel equals its plain version on the
@@ -79,10 +108,12 @@ Phases, each printed as it runs:
      result line {"ok": true, "device": {...}}.
 
 Each path's kernel launch counts are set to 0 just before it and read
-just after it (phases 4, 4b, 4c, 4d, 6, 7; 4c's routed serving, its
-spanning-head serving and its live serving each; 4d as a whole, ground
-truth and rebuilds included); masked_l2_topk's launches in the kernels
-line are the sum over phases 4, 4b, 4c and 4d.  Any failed check raises, so the script
+just after it (phases 4, 4b, 4c, 4d, 4e, 6, 7; 4c's routed serving, its
+spanning-head serving and its live serving each; 4d and 4e each as a
+whole, ground truth and rebuilds included, and their serving runs alone:
+in 4e the runtime's own batch_query calls, never the checks of them);
+masked_l2_topk's launches in the kernels line are the sum over phases 4,
+4b, 4c, 4d and 4e (serving runs).  Any failed check raises, so the script
 exits non-zero and prints no result.  It needs a CUDA card and the repo's
 ``src/`` beside it, and imports nothing of the JAX package.
 """
@@ -529,30 +560,50 @@ def where_time_goes(eng, qs, ps, served, k: int, n: int = 40) -> None:
     }, n)
 
 
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _device_busy(dev, fn):
+    """(fn(), host wall s, device busy s, device-side profiler rows) of one
+    call under torch.profiler; busy is None off the card or when the
+    profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0, None, []
+    _sync(dev)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        _sync(dev)
+    wall = time.perf_counter() - t0
+    # device-side events only: a CPU op's row repeats its kernels' time
+    ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ka) / 1e6
+    return out, wall, (busy if busy > 0 else None), ka
+
+
 def profile_runs(runs: dict, n: int, tag: str = "time") -> None:
     """For each ``runs[name](i)``, i < n: device busy against host wall per
     call under torch.profiler (after a warm pass), the idle share, and the
     top device kernels."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for name, run in runs.items():
         for i in range(n):          # warm: predicate cache, allocator
             run(i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(n):
-                run(i)
-            torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        # device-side events only: a CPU op's row repeats its kernels' time
-        ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in ka) / 1e3
-        if busy <= 0:
+        _, wall, busy, ka = _device_busy(torch.device("cuda"),
+                                         lambda: [run(i) for i in range(n)])
+        if busy is None:
             print(f"[{tag}] {name}: device time not measured (profiler saw none)")
             continue
+        wall, busy = wall * 1e3, busy * 1e3
         top = sorted(ka, key=lambda e: -e.self_device_time_total)[:4]
         print(f"[{tag}] {name}: {n} queries, wall {wall / n:.3f} ms/query, device busy "
               f"{busy / n:.3f} ms/query, device idle share {1 - busy / wall:.3f}; top: "
@@ -585,17 +636,37 @@ def exact_plan(plan) -> bool:
     return all(c.decision in (PRE_FILTER, INDEXED_PRE) for c in plan.clauses)
 
 
+class TruthMemo:
+    """Exact top-k with distances over a clean engine's device corpus
+    (``l2_topk``, independent of the serving path), one per (query, pred)."""
+
+    def __init__(self, eng, k: int):
+        self.eng, self.k, self.memo = eng, k, {}
+
+    def __call__(self, q, pred):
+        import numpy as np
+        import torch
+
+        from repro_torch.index.flat import l2_topk
+
+        key = (np.asarray(q, np.float32).tobytes(), id(pred))
+        if key not in self.memo:
+            vd = self.eng.vectors_dev
+            m = torch.as_tensor(pred.eval(self.eng.cat, self.eng.num), device=vd.device)
+            d, i = l2_topk(torch.as_tensor(np.atleast_2d(q), device=vd.device), vd, self.k, m)
+            self.memo[key] = (d.cpu().numpy(), i.cpu().numpy())
+        return self.memo[key]
+
+
 def check_rows(eng, qs, preds, served, batched, k: int, tag: str, truth_of=None) -> dict:
     """Every id passes its predicate, once; batch_query rows equal query
     rows; rows that `truth_of` selects equal ground truth up to ties.
     Returns per-row recall@10 against ground truth."""
     import numpy as np
-    import torch
 
     from repro_torch.core import recall_at_k
-    from repro_torch.index.flat import l2_topk
 
-    vd = eng.vectors_dev
+    truth = TruthMemo(eng, k)
     recalls = []
     for i, (r, br) in enumerate(zip(served, batched)):
         mask = preds[i].eval(eng.cat, eng.num)
@@ -605,9 +676,7 @@ def check_rows(eng, qs, preds, served, batched, k: int, tag: str, truth_of=None)
         check(len(set(ids.tolist())) == ids.size, f"{tag} {i}: an id came back twice: {ids}")
         check(np.array_equal(r.result.ids, br.result.ids),
               f"{tag} {i}: batch_query ids {br.result.ids} differ from query ids {r.result.ids}")
-        td, ti = l2_topk(torch.as_tensor(qs[i:i + 1], device=vd.device), vd, k,
-                         torch.as_tensor(mask, device=vd.device))
-        td, ti = td.cpu().numpy(), ti.cpu().numpy()
+        td, ti = truth(qs[i], preds[i])
         check(np.array_equal(eng.ground_truth(qs[i], preds[i], k).shape, (1, k)), "ground_truth shape")
         if truth_of is not None and truth_of(r):
             check(same_up_to_ties(qs[i], r.result.ids, r.result.dists, ti, td),
@@ -689,11 +758,11 @@ def dnf_phase(mp: dict, k: int = 10, batch: int = 64) -> dict:
 # phase 4c: a routed engine (flat, ivf, ivfpq, acorn) at full size
 # ----------------------------------------------------------------------
 BACKENDS = ("flat", "ivf", "ivfpq", "acorn")
-# phase 4c fits on the first 32 of phase 4's training queries: each one
+# phase 4c fits on the first 16 of phase 4's training queries: each one
 # races both ACORN tiers with the host beam search, which took 3.6-13.2 s a
-# training query at 2.14M rows on an H100 (PERF.md section 4 gives the
-# headroom this leaves inside the script's 1,200 s)
-ROUTED_TRAIN = 32
+# training query at 2.14M rows on an H100; at 32 the fit reached 357 s and
+# the script 1,034 s of its 1,200 s (PERF.md section 4)
+ROUTED_TRAIN = 16
 
 
 def threshold_head(sel_cut: float) -> dict:
@@ -939,41 +1008,48 @@ def live_truth(eng, q, pred, k: int):
     return d, i
 
 
+def check_live_row(eng, q, pred, r, k: int, tag: str, exact: bool = False) -> None:
+    """One row served over a mutated corpus: no tombstoned id, every id
+    passes its predicate once; an ``exact`` row equals the live
+    ground_truth bitwise and the independent live truth up to ties."""
+    import numpy as np
+
+    live = eng.live
+    ids = r.result.ids[0][r.result.ids[0] >= 0]
+    check(not live.is_deleted(ids).any(), f"{tag}: a tombstoned id came back: {ids}")
+    c, m = live.row_attrs(ids)
+    check(r.result.ids.shape == (1, k) and bool(pred.eval(c, m).all()),
+          f"{tag}: an id fails its predicate {pred}")
+    check(len(set(ids.tolist())) == ids.size, f"{tag}: an id came back twice: {ids}")
+    if not exact:
+        return
+    gt = eng.ground_truth(q, pred, k)
+    check(np.array_equal(r.result.ids, gt),
+          f"{tag} ({r.plan.strategy}): {r.result.ids} differs from the live ground_truth {gt}")
+    td, ti = live_truth(eng, q, pred, k)
+    check(same_up_to_ties(np.asarray(q, np.float32), r.result.ids, r.result.dists, ti, td),
+          f"{tag} ({r.plan.strategy}): {r.result.ids} {r.result.dists} differs from the live "
+          f"truth {ti} {td}")
+
+
 def check_live_rows(eng, qs, preds, served, batched, k: int, tag: str, exact_of=None) -> dict:
-    """Rows served over a mutated corpus: no tombstoned id, every id passes
-    its predicate once, batch rows equal query rows bitwise, and rows that
-    ``exact_of`` selects equal the live ground_truth bitwise and the
-    independent live truth up to ties.  With ``exact_of``, returns recall@10
-    of the other rows against the live truth."""
+    """Rows served over a mutated corpus (``check_live_row``, exact where
+    ``exact_of`` says), and batch rows equal query rows bitwise.  With
+    ``exact_of``, returns recall@10 of the other rows against the live
+    truth."""
     import numpy as np
 
     from repro_torch.core import recall_at_k
 
-    live = eng.live
     recalls, n_exact = [], 0
     for i, (r, br) in enumerate(zip(served, batched)):
-        ids = r.result.ids[0][r.result.ids[0] >= 0]
-        check(not live.is_deleted(ids).any(), f"{tag} {i}: a tombstoned id came back: {ids}")
-        c, m = live.row_attrs(ids)
-        check(r.result.ids.shape == (1, k) and bool(preds[i].eval(c, m).all()),
-              f"{tag} {i}: an id fails its predicate {preds[i]}")
-        check(len(set(ids.tolist())) == ids.size, f"{tag} {i}: an id came back twice: {ids}")
         check(np.array_equal(r.result.ids, br.result.ids),
               f"{tag} {i}: batch_query ids {br.result.ids} differ from query ids {r.result.ids}")
-        if exact_of is None:
-            continue
-        td, ti = live_truth(eng, qs[i], preds[i], k)
-        if exact_of(r):
-            n_exact += 1
-            gt = eng.ground_truth(qs[i], preds[i], k)
-            check(np.array_equal(r.result.ids, gt),
-                  f"{tag} {i} ({r.plan.strategy}): {r.result.ids} differs from the live "
-                  f"ground_truth {gt}")
-            check(same_up_to_ties(qs[i], r.result.ids, r.result.dists, ti, td),
-                  f"{tag} {i} ({r.plan.strategy}): {r.result.ids} {r.result.dists} differs from "
-                  f"the live truth {ti} {td}")
-        else:
-            recalls.append(recall_at_k(r.result.ids, ti))
+        exact = exact_of is not None and bool(exact_of(r))
+        check_live_row(eng, qs[i], preds[i], r, k, f"{tag} {i}", exact)
+        n_exact += exact
+        if exact_of is not None and not exact:
+            recalls.append(recall_at_k(r.result.ids, live_truth(eng, qs[i], preds[i], k)[1]))
     return {"recall": recalls, "n_exact": n_exact}
 
 
@@ -1163,11 +1239,7 @@ def live_phase(mp: dict, k: int = 10, batch: int = 64, n_shards: int = 4) -> dic
     ops.reset_kernel_launches()
     ops.reset_dispatch_stats()
     t0 = time.perf_counter()
-    eng = FilteredANNEngine(ds.vectors, ds.cat, ds.num, EngineConfig(device="cuda")).build()
-    carry.install(eng, centroids=eng4.ivf.centroids.cpu().numpy(),
-                  assignment=carry.ivf_assignment(eng4.ivf),
-                  gbm=carry.gbm_state(eng4.estimator.model),
-                  planner=eng4.planner.state_dict())
+    eng = carried_engine(eng4)
     t1 = time.perf_counter()
     sh = ShardedANNEngine(eng, n_shards=n_shards)
     torch.cuda.synchronize()
@@ -1298,6 +1370,492 @@ def live_phase(mp: dict, k: int = 10, batch: int = 64, n_shards: int = 4) -> dic
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"launches": {"masked_l2_topk": serving}, "upsert_rows_s": n_up / up_s, "delete_rows_s": deleted / del_s,
             "compact_s": compact_s, "peak_gb": peak}
+
+
+# ----------------------------------------------------------------------
+# phase 4e: the serving runtime, observability, checkpoints and the fleet
+# ----------------------------------------------------------------------
+RUNTIME_LOADS = (0.5, 2.0, 8.0)   # x 1 / ServiceModel().estimate(1), as runtime_bench.py
+RUNTIME_READS = 400
+POOL = 16                         # predicates drawn (zipf 1.2) by a trace
+FLEET_TRAIN = 64                  # phase 4's training queries each tenant fits on
+FLEET_TARGETS = (0.95, 0.60)      # fleet_bench.py: quiet SLO hit rate, fleet / shared
+PROM_LINE = r'^(#.*|[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*",?)*\})? \S+)$'
+
+
+def _launches() -> int:
+    from repro_torch.kernels import ops
+
+    return ops.kernel_launches()["masked_l2_topk"]
+
+
+def _idle(wall, busy) -> str:
+    if busy is None:
+        return "device time not measured"
+    return f"device busy {busy:.3f} s of {wall:.3f} s wall, idle share {1 - busy / wall:.3f}"
+
+
+def check_served(eng, req, res, truth, tag: str) -> bool:
+    """A served read: k slots, every id passes its predicate once, and an
+    exact plan equals ``truth`` up to ties.  Returns whether it was exact."""
+    import numpy as np
+
+    ids = res.result.ids[0][res.result.ids[0] >= 0]
+    c, m = eng.live.row_attrs(ids)
+    check(res.result.ids.shape == (1, req.k) and bool(req.pred.eval(c, m).all()),
+          f"{tag} rid {req.rid}: an id fails its predicate")
+    check(len(set(ids.tolist())) == ids.size, f"{tag} rid {req.rid}: an id came back twice")
+    if not exact_plan(res.plan):
+        return False
+    td, ti = truth(req.query, req.pred)
+    check(same_up_to_ties(np.asarray(req.query, np.float32), res.result.ids, res.result.dists,
+                          ti, td),
+          f"{tag} rid {req.rid} ({res.plan.strategy}): {res.result.ids} {res.result.dists} "
+          f"differs from the truth {ti} {td}")
+    return True
+
+
+def carried_engine(src):
+    """A plain engine over src's base rows, on src's device, with src's
+    planner, GBM and IVF layout carried."""
+    from repro_torch import carry
+    from repro_torch.core import EngineConfig, FilteredANNEngine
+
+    live = src.live
+    eng = FilteredANNEngine(live.base_vectors, live.base_cat, live.base_num,
+                            EngineConfig(device=src.device.type)).build()
+    return carry.install(eng, centroids=src.ivf.centroids.cpu().numpy(),
+                         assignment=carry.ivf_assignment(src.ivf),
+                         gbm=carry.gbm_state(src.estimator.model),
+                         planner=src.planner.state_dict())
+
+
+def runtime_replays(eng, qs, pool, k: int) -> dict:
+    """(a) runtime_bench.py's traffic: Poisson and bursty traces of 400
+    reads at 0.5, 2 and 8 x the single-request virtual capacity through
+    OnlineRuntime(max_batch=64, max_wait=0.005), each replayed twice."""
+    import numpy as np
+
+    from repro_torch.runtime import OnlineRuntime, SchedulerConfig, ServiceModel, make_trace
+
+    cfg = SchedulerConfig(max_batch=64, max_wait=0.005)
+    cap = 1.0 / ServiceModel().estimate(1)
+    truth = TruthMemo(eng, k)
+    serving, n_exact, out = 0, 0, {}
+    for si, shape in enumerate(("poisson", "bursty")):
+        for li, load in enumerate(RUNTIME_LOADS):
+            tag = f"[runtime] {shape} x{load}"
+            trace = make_trace(shape, qs, pool, RUNTIME_READS, load * cap, k=k,
+                               seed=100 + 10 * si + li)
+            l0 = _launches()
+            rep = OnlineRuntime(eng, cfg).run_trace(trace)
+            serving += _launches() - l0
+            again = OnlineRuntime(eng, cfg).run_trace(trace)
+            check(rep.batches == again.batches, f"{tag}: replay batches differ")
+            check(rep.telemetry.counters() == again.telemetry.counters(),
+                  f"{tag}: replay counters differ")
+            rids = sorted(r for b in rep.batches for r in b)
+            check(rids == list(range(len(trace))) and sorted(rep.results) == rids,
+                  f"{tag}: not every request answered exactly once")
+            for r in trace:
+                check(np.array_equal(rep.ids(r.rid), again.ids(r.rid)),
+                      f"{tag}: replay ids differ for rid {r.rid}")
+                n_exact += check_served(eng, r, rep.results[r.rid], truth, tag)
+            t0 = time.perf_counter()
+            for r in trace:
+                eng.query(r.query, r.pred, r.k)
+            naive_qps = len(trace) / (time.perf_counter() - t0)
+            c = snap = rep.telemetry.snapshot()
+            hit = {t: c["deadline_met"].get(t, 0) / max(1, c["deadline_met"].get(t, 0)
+                                                        + c["deadline_missed"].get(t, 0))
+                   for t in sorted(set(c["deadline_met"]) | set(c["deadline_missed"]))}
+            lat = snap["latency_virtual"]
+            out[(shape, load)] = {"qps": snap["wall"]["throughput_qps"], "naive_qps": naive_qps}
+            print(f"{tag}: {len(trace)} reads at {load * cap:.1f} virtual qps in "
+                  f"{c['n_batches']} batches (mean {len(trace) / c['n_batches']:.1f}); measured "
+                  f"{snap['wall']['throughput_qps']:.1f} QPS vs a per-request query() loop "
+                  f"{naive_qps:.1f} ({snap['wall']['throughput_qps'] / naive_qps:.2f}x; "
+                  f"runtime_bench's target 2x, not gated); virtual p50 {lat['p50'] * 1e3:.3f} / "
+                  f"p99 {lat['p99'] * 1e3:.3f} ms (virtual); deadline hit rate (virtual) "
+                  + ", ".join(f"{t} {v:.3f}" for t, v in hit.items())
+                  + "; plans " + ", ".join(f"{p} {n}" for p, n in c["plan_counts"].items() if n),
+                  flush=True)
+    check(n_exact > 0, "no exact-plan row in the runtime replays")
+    trace = make_trace("poisson", qs, pool, RUNTIME_READS, 2.0 * cap, k=k, seed=111)
+    rep, wall, busy, _ = _device_busy(eng.device, lambda: OnlineRuntime(eng, cfg).run_trace(trace))
+    print(f"[runtime] one replay (poisson x2.0) under torch.profiler: {_idle(wall, busy)}; "
+          f"{n_exact} exact-plan rows equal an l2_topk truth up to ties; replays bitwise equal; "
+          f"{serving} masked_l2_topk launches in the measured replays", flush=True)
+    return {"launches": serving, "rows": out}
+
+
+class LiveChecked:
+    """A runtime backend that checks every served batch on the spot, before
+    the next writes (``check_live_row``: exact rows against the live
+    ground_truth bitwise and the independent live truth up to ties).
+    ``launches`` counts the masked_l2_topk launches of the runtime's own
+    batch_query calls, not those of the checks."""
+
+    def __init__(self, eng):
+        self.eng, self.n_exact, self.n_rows, self.launches = eng, 0, 0, 0
+
+    def upsert(self, *a, **kw):
+        return self.eng.upsert(*a, **kw)
+
+    def delete(self, *a, **kw):
+        return self.eng.delete(*a, **kw)
+
+    def maybe_compact(self):
+        return self.eng.maybe_compact()
+
+    def batch_query(self, queries, preds, k):
+        l0 = _launches()
+        out = self.eng.batch_query(queries, preds, k)
+        self.launches += _launches() - l0
+        for j, res in enumerate(out):
+            exact = exact_plan(res.plan)
+            check_live_row(self.eng, queries[j], preds[j], res, k,
+                           f"[writes] row {self.n_rows}", exact)
+            self.n_rows += 1
+            self.n_exact += exact
+        return out
+
+
+def writes_and_checkpoint(eng, ds, eng4, qs, pool, train_q, k: int) -> int:
+    """(b) a Poisson trace with write_frac 0.1 (upserts of phase 4's
+    training query vectors, held out of its served set; deletes from a pool
+    of base handles), then a checkpoint of mutation_state() restored onto a
+    fresh engine with the same carried state."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.runtime import OnlineRuntime, SchedulerConfig, ServiceModel, poisson_trace
+
+    n = eng.vectors.shape[0]
+    rng = np.random.default_rng(41)
+    src = rng.choice(n, len(train_q), replace=False)
+    wc = (np.asarray(train_q, np.float32), eng.cat[src], eng.num[src])
+    cap = 1.0 / ServiceModel().estimate(1)
+    trace = poisson_trace(qs, pool, RUNTIME_READS, 2.0 * cap, k=k, seed=7, write_frac=0.1,
+                          write_corpus=wc, delete_pool=rng.choice(n, 4000, replace=False))
+    backend = LiveChecked(eng)
+    rep = OnlineRuntime(backend, SchedulerConfig(max_batch=64, max_wait=0.005)).run_trace(trace)
+    serving = backend.launches
+    c = rep.telemetry.counters()
+    check(c["n_upserts"] > 0 and c["n_deletes"] > 0, f"[writes] no writes served: {c}")
+    check(backend.n_exact > 0, "[writes] no exact row to check")
+    print(f"[writes] {len(trace)} requests ({c['n_upserts']} upserted rows, {c['n_deletes']} "
+          f"deleted, {c['n_compactions']} compactions) in {c['n_batches']} batches: no tombstoned "
+          f"id in {backend.n_rows} reads, {backend.n_exact} exact rows equal the live ground "
+          f"truth bitwise and an l2_topk live truth up to ties; {serving} masked_l2_topk "
+          f"launches in the runtime's batch_query calls", flush=True)
+
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d, keep=2)
+        t0 = time.perf_counter()
+        ck.save(1, eng.mutation_state(), meta={"corpus_generation": eng.corpus_generation})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck.save_async(2, eng.mutation_state(), meta={"corpus_generation": eng.corpus_generation})
+        ck.wait()
+        async_s = time.perf_counter() - t0
+        step = os.path.join(d, "step_00000002")
+        n_bytes = sum(os.path.getsize(os.path.join(step, f)) for f in os.listdir(step))
+        t0 = time.perf_counter()
+        fresh = carried_engine(eng4)
+        _sync(fresh.device)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh.load_mutation_state(ck.restore(ck.latest_step(), fresh.mutation_state()))
+        restore_s = time.perf_counter() - t0
+        check(ck.steps() == [1, 2] and ck.latest_meta()["corpus_generation"]
+              == eng.corpus_generation, f"checkpoint steps {ck.steps()}")
+    check((fresh.live.n_total, fresh.live.live_count) == (eng.live.n_total, eng.live.live_count),
+          "the restored engine's live rows differ")
+    # every served row (exact plans, and post rows over the same carried
+    # IVF layout) and the exact live truth of every query, bitwise; writes
+    # move n, which flips the carried planner (ROADMAP Queue 3), so the
+    # exact truth is compared whatever the plan
+    n_exact = 0
+    for i in range(64):
+        pred = pool[i % len(pool)]
+        a, b = eng.query(qs[i], pred, k), fresh.query(qs[i], pred, k)
+        n_exact += exact_plan(a.plan)
+        check(a.plan.strategy == b.plan.strategy
+              and np.array_equal(a.result.ids, b.result.ids)
+              and np.array_equal(a.result.dists, b.result.dists),
+              f"[ckpt] query {i}: restored {b.result.ids} differs from {a.result.ids}")
+        check(np.array_equal(eng.ground_truth(qs[i], pred, k), fresh.ground_truth(qs[i], pred, k)),
+              f"[ckpt] query {i}: the restored engine's exact live truth differs")
+    print(f"[ckpt] mutation_state: save {save_s:.3f} s, save_async + wait {async_s:.3f} s, "
+          f"{n_bytes} bytes on disk; fresh engine {build_s:.2f} s (build + carried state), "
+          f"restore {restore_s:.3f} s; 64 served rows ({n_exact} exact plans) and 64 exact "
+          f"live truths equal the live engine's bitwise", flush=True)
+    del fresh
+    return serving
+
+
+def observability(eng, qs, pool, k: int) -> int:
+    """(c) Tracer, RecallProbe and OnlineFeedback over one runtime."""
+    import re
+
+    from repro_torch.kernels.masked_l2 import SMEM_MAX
+    from repro_torch.obs import (RecallProbe, Tracer, publish_kernel_budget,
+                                 publish_kernel_dispatch, publish_stats, span_summary)
+    from repro_torch.runtime import (FeedbackConfig, OnlineFeedback, OnlineRuntime,
+                                     SchedulerConfig, ServiceModel, poisson_trace)
+
+    cfg = SchedulerConfig(max_batch=64, max_wait=0.005)
+    trace = poisson_trace(qs, pool, RUNTIME_READS, 2.0 / ServiceModel().estimate(1), k=k, seed=9)
+
+    def cold(**kw):
+        eng.plan_cache.clear()
+        eng.pred_cache.clear()
+        rep = OnlineRuntime(eng, cfg, **kw).run_trace(trace)
+        eng.set_tracer(None)
+        return rep
+
+    # stats()'s kernel_dispatch moves over a traced replay by what its
+    # execute spans' kernel_* attrs add up to, kernel by kernel
+    d0 = eng.stats()["kernel_dispatch"]
+    l0 = _launches()
+    ta = Tracer()
+    cold(tracer=ta)
+    serving = _launches() - l0
+    delta = {n: c - d0.get(n, 0) for n, c in eng.stats()["kernel_dispatch"].items()
+             if c != d0.get(n, 0)}
+    spans: dict = {}
+    for s in ta.spans():
+        if s.name == "execute":
+            for key, v in s.attrs.items():
+                if key.startswith("kernel_"):
+                    spans[key[len("kernel_"):]] = spans.get(key[len("kernel_"):], 0) + v
+    check(spans == delta and delta.get("fused_masked_topk", 0) > 0,
+          f"execute spans hold dispatches {spans}, stats()' kernel_dispatch moved by {delta}")
+    tb = Tracer()
+    cold(tracer=tb)
+    check(ta.deterministic_tree() == tb.deterministic_tree(),
+          "two cold traced replays gave different span trees")
+    tc = Tracer()
+    _, wall, busy, _ = _device_busy(eng.device, lambda: cold(tracer=tc))
+    rows = span_summary(tc)
+    print(f"[obs] {sum(1 for _ in ta.spans())} spans a replay, equal across two cold replays; "
+          f"execute spans' dispatches {spans} = stats()' kernel_dispatch delta; span_summary (kernel: rows "
+          f"are enqueue walls, not device time) beside the profiler: {_idle(wall, busy)}", flush=True)
+    for r in rows[:8]:
+        print(f"[obs]   {r['stage']:<28} count {r['count']:>5}  wall {r['wall_s'] * 1e3:9.3f} ms  "
+              f"self {r['self_s'] * 1e3:9.3f} ms")
+    probe = RecallProbe(rate=0.05, seed=0)
+    fb = OnlineFeedback(eng, FeedbackConfig(sample_rate=0.25, refit_every=32, min_examples=32,
+                                            seed=0))
+    t0 = time.perf_counter()
+    rep = cold(tracer=Tracer(), probe=probe, feedback=fb)
+    fb_s = time.perf_counter() - t0
+    check(fb.n_refits >= 1, f"feedback attempted no refit: {fb.stats()}")
+    check(probe.n_sampled > 0, "the probe sampled nothing")
+    reg = rep.telemetry.registry
+    publish_stats(reg, eng.stats())
+    publish_kernel_dispatch(reg)
+    publish_kernel_budget(reg)
+    probe.publish(reg)
+    fb.publish(reg)
+    text = reg.prometheus_text()
+    bad = [line for line in text.splitlines() if not re.match(PROM_LINE, line)]
+    check(not bad, f"prometheus_text() lines that do not parse: {bad[:3]}")
+    print(f"[obs] probe (rate 0.05, {probe.n_sampled} of {probe.n_seen} sampled) recall by "
+          "class: " + ", ".join(f"{c} {v['recall']:.4f} (n={v['count']})"
+                                for c, v in probe.estimates().items()), flush=True)
+    print(f"[obs] feedback (wall-clock shadow labels, sample 0.25, refit every 32): "
+          f"{fb.stats()} in {fb_s:.1f} s; prometheus_text() {len(text.splitlines())} lines parse",
+          flush=True)
+    print(f"[obs] smem budget (bytes per block; sm_90 allows {SMEM_MAX}): "
+          + ", ".join(f"{lbl['kernel']} qt {lbl['qt']} {int(v)}"
+                      f"{'' if reg.value('repro_kernel_smem_fits_sm90', **lbl) else ' (no)'}"
+                      for lbl, v in reg.series("repro_kernel_smem_bytes")), flush=True)
+    return serving
+
+
+def fleet_phase(ds, qs, pool, train, k: int, device: str) -> int:
+    """(d) fleet_bench.py's headline: three tenants over an even split of
+    the rows, two quiet Poisson tenants at 0.3 of the fair load and one
+    noisy bursty tenant at 8x, FleetRuntime (DRR, admission, autoscale)
+    against the shared-queue baseline on one trace."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.core import EngineConfig
+    from repro_torch.fleet import (AdmissionController, AutoscaleConfig, CollectionSchema, Fleet,
+                                   FleetConfig, FleetRuntime, FleetServiceModel, TenantCollection)
+    from repro_torch.runtime import TenantTraceSpec, multi_tenant_trace
+
+    batch = 64
+    svc = FleetServiceModel()
+    capacity = batch / (svc.dispatch + batch * min(svc.per_row.values()) / 2 + svc.fanout * 2)
+    fair = capacity / 3
+    quiet, noisy = {"standard": 0.9, "batch": 0.1}, {"standard": 1.0}
+    tenants = [("checkout", quiet, "poisson", 0.3, 0.30), ("catalog", quiet, "poisson", 0.3, 0.30),
+               ("analytics", noisy, "bursty", 8.0, 0.15)]
+    n_each = ds.vectors.shape[0] // len(tenants)
+    fleet = Fleet(total_shards=8)
+    specs, times = [], []
+    qt, pt = train
+    for ti, (name, mix, kind, frac, duration) in enumerate(tenants):
+        rows = slice(ti * n_each, (ti + 1) * n_each)
+        is_noisy = kind == "bursty"
+        schema = CollectionSchema(name=name, dim=ds.vectors.shape[1], n_shards=1 if is_noisy else 2,
+                                  admit_rate=0.6 * fair if is_noisy else None,
+                                  admit_burst=0.3 * fair if is_noisy else None)
+        t0 = time.perf_counter()
+        col = fleet.create(schema, ds.vectors[rows], ds.cat[rows], ds.num[rows],
+                           config=EngineConfig(device=device),
+                           train=(qt[:FLEET_TRAIN], pt[:FLEET_TRAIN]), k=k)
+        _sync(col.engine.device)
+        bt = col.engine.build_time_
+        times.append(f"{name} {time.perf_counter() - t0:.2f} s (fit {bt['fit']:.2f}, ivf "
+                     f"{bt['ivf']:.2f})")
+        rate = frac * fair
+        specs.append(TenantTraceSpec(name, qs, pool, int(rate * duration), rate, kind=kind, k=k,
+                                     tier_mix=mix, burst_factor=8.0, burst_frac=0.25, cycle=0.05))
+    trace = multi_tenant_trace(specs, seed=42)
+    print(f"[fleet] {len(tenants)} tenants of {n_each} rows ({', '.join(times)}); fair share "
+          f"{fair:.1f} virtual qps each; {len(trace)} requests", flush=True)
+
+    def fleet_run():
+        return FleetRuntime(fleet, FleetConfig(max_batch=batch, fair=True),
+                            admission=AdmissionController.for_fleet(fleet),
+                            autoscale=AutoscaleConfig(eval_every=0.05, min_window=24,
+                                                      grow_miss_rate=0.15, shrink_miss_rate=0.02,
+                                                      cooldown=0.05)).run_trace(trace)
+
+    l0 = _launches()
+    t0 = time.perf_counter()
+    shared = FleetRuntime(fleet, FleetConfig(max_batch=batch, fair=False)).run_trace(trace)
+    shared_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r1 = fleet_run()
+    fleet_s = time.perf_counter() - t0
+    serving = _launches() - l0
+    r2 = fleet_run()
+    check(r1.batches == r2.batches and r1.rejected == r2.rejected, "fleet replay batches/rejects")
+    check(r1.telemetry.counters() == r2.telemetry.counters(), "fleet replay counters differ")
+    check([e.as_dict() for e in r1.scale_events] == [e.as_dict() for e in r2.scale_events],
+          "fleet replay scale events differ")
+    check(sorted(r1.results) == sorted(r2.results), "fleet replay answered other rids")
+    for rid in r1.results:
+        check(np.array_equal(r1.ids(rid), r2.ids(rid)), f"fleet replay ids differ for rid {rid}")
+    truths = {n: TruthMemo(fleet[n].engine, k) for n in fleet.names()}
+    n_exact = 0
+    by_rid = {r.rid: r for r in trace}
+    for tag, rep in (("[fleet]", r1), ("[fleet shared]", shared)):
+        for rid, res in rep.results.items():
+            req = by_rid[rid]
+            n_exact += check_served(fleet[req.tenant].engine, req, res, truths[req.tenant], tag)
+    check(n_exact > 0, "[fleet] no exact row to check")
+    names = fleet.names()
+    quiet_names = [t[0] for t in tenants if t[2] == "poisson"]
+    hit = {n: (r1.slo_hit_rate(n), shared.slo_hit_rate(n)) for n in names}
+    grows = [e for e in r1.scale_events if e.action == "grow"]
+    shrinks = [e for e in r1.scale_events if e.action == "shrink"]
+    print(f"[fleet] SLO hit rate (virtual) fleet / shared: "
+          + ", ".join(f"{n} {a:.4f} / {b:.4f}" for n, (a, b) in hit.items())
+          + f"; quiet min {min(hit[n][0] for n in quiet_names):.4f} (fleet_bench's target "
+          f"{FLEET_TARGETS[0]}) / {min(hit[n][1] for n in quiet_names):.4f} (at most "
+          f"{FLEET_TARGETS[1]}), not gated; rejected {len(r1.rejected)}", flush=True)
+    print(f"[fleet] scale events: {len(grows)} grow, {len(shrinks)} shrink, "
+          f"{len(r1.scale_events) - len(grows) - len(shrinks)} other: "
+          + "; ".join(f"{e.t:.3f} {e.tenant} {e.action} {e.from_shards}->{e.to_shards}"
+                      for e in r1.scale_events[:8]), flush=True)
+    print(f"[fleet] shared run {shared_s:.2f} s, fleet run {fleet_s:.2f} s (reshards included); "
+          f"two fleet runs equal (batches, rejects, ids, counters, scale events); {n_exact} exact "
+          f"rows equal an l2_topk truth up to ties; {serving} masked_l2_topk launches in the "
+          f"shared and first fleet runs", flush=True)
+    t0 = time.perf_counter()
+    fleet["checkout"].reshard(3)
+    _sync(fleet["checkout"].engine.device)
+    reshard_s = time.perf_counter() - t0
+    fleet.reset_shards()
+
+    # writes on one tenant, then save and restore onto fresh collections
+    cat = fleet["catalog"]
+    rng = np.random.default_rng(43)
+    src = rng.choice(n_each, 64, replace=False)
+    cat.upsert(np.asarray(qt[:64], np.float32), cat.engine.cat[src], cat.engine.num[src])
+    cat.delete(rng.choice(n_each, 256, replace=False))
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d)
+        t0 = time.perf_counter()
+        fleet.save(ck, step=1)
+        save_s = time.perf_counter() - t0
+        fresh = Fleet(total_shards=8)
+        t0 = time.perf_counter()
+        for n in names:
+            fresh.add(TenantCollection(fleet[n].schema, carried_engine(fleet[n].engine)))
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh.restore(ck)
+        restore_s = time.perf_counter() - t0
+    n_cmp = 0
+    for n in names:
+        check(fresh[n].manifest()["live_count"] == fleet[n].manifest()["live_count"]
+              and fresh[n].n_shards == fleet[n].n_shards, f"[fleet] {n}: restored manifest differs")
+        for i in range(24):
+            a, b = fleet[n].query(qs[i], pool[i % len(pool)], k), fresh[n].query(qs[i], pool[i % len(pool)], k)
+            if exact_plan(a.plan):
+                n_cmp += 1
+                check(np.array_equal(a.result.ids, b.result.ids)
+                      and np.array_equal(a.result.dists, b.result.dists),
+                      f"[fleet] {n} query {i}: restored {b.result.ids} differs from {a.result.ids}")
+    check(n_cmp > 0, "[fleet] no exact row to compare after restore")
+    print(f"[fleet] reshard(3) of a {n_each}-row tenant {reshard_s:.2f} s; save {save_s:.3f} s, "
+          f"3 fresh collections {build_s:.2f} s, restore {restore_s:.2f} s; {n_cmp} exact rows "
+          f"equal bitwise after restore", flush=True)
+    del fresh, fleet
+    return serving
+
+
+def runtime_phase(mp: dict, k: int = 10) -> dict:
+    """Phase 4e: the runtime, checkpoints, observability and the fleet over
+    a plain engine at phase 4's size, its state carried from phase 4."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ds, qs, ps, eng4 = mp["ds"], mp["qs"], mp["preds"], mp["engine"]
+    pool = ps[:POOL]
+    t_phase = time.perf_counter()
+    if eng4.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    eng = carried_engine(eng4)
+    _sync(eng.device)
+    print(f"[runtime] plain engine {time.perf_counter() - t0:.2f} s (build + phase 4's planner, "
+          f"GBM and IVF layout)", flush=True)
+    serving = runtime_replays(eng, qs, pool, k)["launches"]
+    serving += writes_and_checkpoint(eng, ds, eng4, qs, pool, mp["train"][0], k)
+    serving += observability(eng, qs, pool, k)
+    del eng
+    gc.collect()
+    if eng4.device.type == "cuda":
+        torch.cuda.empty_cache()
+    serving += fleet_phase(ds, qs, ps[:24], mp["train"], k, eng4.device.type)
+    gc.collect()
+    peak = 0.0
+    if eng4.device.type == "cuda":
+        torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    check(serving > 0, "phase 4e's serving launched masked_l2_topk no time")
+    print(f"[runtime] masked_l2_topk launches in 4e: {serving} serving, "
+          f"{ops.kernel_launches()['masked_l2_topk']} in the whole phase; peak {peak:.2f} GB "
+          f"allocated; phase 4e took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": {"masked_l2_topk": serving}}
 
 
 # ----------------------------------------------------------------------
@@ -1731,6 +2289,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lv = live_phase(mp)
+    ru = runtime_phase(mp)
     lm = lm_serving()
     rag_phase(lm["model"], mp)
     del lm["model"], mp["engine"]
@@ -1746,7 +2305,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/masked_l2_topk.cu",
         "replaces": "src/repro/kernels/masked_l2.py:33",
-        "launches": sum(p["launches"]["masked_l2_topk"] for p in (mp, dnf, rt, lv)),
+        "launches": sum(p["launches"]["masked_l2_topk"] for p in (mp, dnf, rt, lv, ru)),
         "max_abs_err": kc["max_abs_err"],
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],

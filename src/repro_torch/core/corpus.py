@@ -266,3 +266,14 @@ class LiveCorpus:
             "seg_cat": self.seg_cat().copy(),
             "seg_num": self.seg_num().copy(),
         }
+
+    def stats(self) -> dict:
+        return {
+            "n_total": self.n_total,
+            "live_count": self.live_count,
+            "seg_rows": self.seg_n,
+            "tombstone_frac": round(self.tombstone_frac, 6),
+            "segment_frac": round(self.segment_frac, 6),
+            "generation": self.generation,
+            "dirty": self.dirty,
+        }

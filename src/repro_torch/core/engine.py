@@ -24,6 +24,13 @@ the live one did.  ``shard_corpus`` splits the corpus into contiguous
 :class:`CorpusShard` s, each with its own executors and indexes over a view
 of the device corpus (``repro_torch.serve.ShardedANNEngine`` fans out to
 them).
+
+Observability follows the reference: ``set_tracer`` installs a
+:class:`~repro_torch.obs.Tracer` whose spans (``plan``,
+``predicate_compile``, ``clause``, ``execute``, ``group``, ``write``,
+``compact``) carry the reference's deterministic attributes, ``execute``
+spans the kernel-dispatch deltas of their body; ``stats`` is the public
+counter surface; ``swap_planner`` installs a refit head.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from ..dist.collectives import merge_topk
 from ..index.flat import l2_topk
 from ..index.ivf import IVFIndex
 from ..index.registry import BackendSet
+from ..obs.trace import NULL_TRACER
 from .corpus import CompactionPolicy, LiveCorpus
 from .executors import (
     IndexedPreFilterExec,
@@ -52,6 +60,7 @@ from .plan import (
     ClausePlan,
     ExecutionPlan,
     NO_ROUTE,
+    STRATEGY_NAMES,
     collapse_clause_results,
     default_route_name,
     expand_for_execution,
@@ -134,6 +143,32 @@ class QueryLabel:
     clauses: Optional[Tuple["QueryLabel", ...]] = None
 
 
+def _kernel_snapshot() -> Tuple[dict, dict]:
+    """Current (dispatch counts, dispatch wall) of the process-global kernel
+    ledger: an execute span annotates the DELTA across its body, so the
+    span carries exactly its own dispatches."""
+    from ..kernels import ops
+
+    return ops.dispatch_counts(), ops.dispatch_wall()
+
+
+def _annotate_kernel_delta(tracer, counts0: dict, wall0: dict) -> None:
+    """Attach per-kernel dispatch deltas since ``counts0``/``wall0`` to the
+    open span: counts on the deterministic ledger (``kernel_<name>``
+    attrs), wall seconds on the real ledger (``kernel:<name>`` wall_detail
+    keys).  The ledger's wall is enqueue time on a CUDA device."""
+    from ..kernels import ops
+
+    for name, n in ops.dispatch_counts().items():
+        d = n - counts0.get(name, 0)
+        if d:
+            tracer.annotate(**{f"kernel_{name}": d})
+    for name, s in ops.dispatch_wall().items():
+        dw = s - wall0.get(name, 0.0)
+        if dw > 0.0:
+            tracer.add_wall(f"kernel:{name}", dw)
+
+
 def package_results(
     d: np.ndarray,
     ids: np.ndarray,
@@ -167,6 +202,7 @@ def _execute_grouped(
     routes: Optional[np.ndarray] = None,
     backend_set: Optional[BackendSet] = None,
     live: Optional[LiveCorpus] = None,
+    tracer=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Decision-grouped batch execution.  The two pre-filter groups
     (scan-masked and bitmap-masked) evaluate each distinct predicate's mask
@@ -185,8 +221,10 @@ def _execute_grouped(
     (``fused_masked_topk``, the kernel on the card); the parts merge with
     ``merge_topk``, base part first, so equal distances keep handle order,
     which a fresh build over the compacted corpus reproduces (its handle ->
-    position map is monotone).  Returns ``(dists (B, k), ids (B, k),
-    expansion_rounds (B,))``."""
+    position map is monotone).  Each group runs under a ``group`` span
+    with the reference's attributes (``live=True`` on a mutated corpus).
+    Returns ``(dists (B, k), ids (B, k), expansion_rounds (B,))``."""
+    tr = tracer if tracer is not None else NULL_TRACER
     b = len(preds)
     out_d = np.full((b, k), np.inf, np.float32)
     out_i = np.full((b, k), -1, np.int32)
@@ -198,6 +236,7 @@ def _execute_grouped(
     if live is not None and live.seg_n:
         seg_exec = PreFilterExec(live.seg_vectors_dev(), live.seg_cat(), live.seg_num())
     masks: dict = {}
+    live_attr = {} if live is None else {"live": True}
 
     def base_mask(ex, pred) -> np.ndarray:
         key = (ex is pre_exec, pred)
@@ -221,33 +260,48 @@ def _execute_grouped(
             if decisions[i] == decision:
                 groups.setdefault(preds[i], []).append(i)
         for pred, rows in groups.items():
-            t0 = time.perf_counter()
-            res = ex.search_masked(queries[rows], base_mask(ex, pred), k, t0=t0)
-            finish(rows, pred, res.dists, res.ids)
+            bk, knob = default_route_name(decision)
+            with tr.span("group", decision=STRATEGY_NAMES[decision], backend=bk,
+                         knob=knob, n_rows=len(rows), **live_attr):
+                t0 = time.perf_counter()
+                m = base_mask(ex, pred)
+                res = ex.search_masked(queries[rows], m, k, t0=t0)
+                if tr.enabled:
+                    tr.annotate(n_candidates=int(m.sum()))
+                finish(rows, pred, res.dists, res.ids)
     routed = routes is not None and backend_set is not None
     post_rows = [i for i in range(b)
                  if decisions[i] == POST_FILTER and not (routed and routes[i] >= 0)]
     if post_rows:
-        d, ids, rnd = post_exec.search_rows(
-            queries[post_rows], [preds[i] for i in post_rows], k,
-            [float(ests[i]) for i in post_rows],
-            alive=None if live is None else alive[: live.base_n],
-        )
-        rounds[post_rows] = rnd
-        groups = {}
-        for j, i in enumerate(post_rows):
-            groups.setdefault(preds[i], []).append(j)
-        for pred, js in groups.items():
-            finish([post_rows[j] for j in js], pred, d[js], ids[js])
+        with tr.span("group", decision="post", backend="ivf", knob="adapt",
+                     n_rows=len(post_rows), **live_attr):
+            d, ids, rnd = post_exec.search_rows(
+                queries[post_rows], [preds[i] for i in post_rows], k,
+                [float(ests[i]) for i in post_rows],
+                alive=None if live is None else alive[: live.base_n],
+            )
+            rounds[post_rows] = rnd
+            groups = {}
+            for j, i in enumerate(post_rows):
+                groups.setdefault(preds[i], []).append(j)
+            for pred, js in groups.items():
+                finish([post_rows[j] for j in js], pred, d[js], ids[js])
+            if tr.enabled:
+                tr.annotate(expansion_rounds=int(np.asarray(rnd).sum()))
     if routed:
         groups = {}
         for i in range(b):
             if decisions[i] == POST_FILTER and routes[i] >= 0:
                 groups.setdefault((int(routes[i]), preds[i]), []).append(i)
         for (ci, pred), rows in groups.items():
-            d, ids = backend_set.search_class(ci, queries[rows],
-                                              base_mask(ipre_exec or pre_exec, pred), k)
-            finish(rows, pred, d[:, :k], ids[:, :k])
+            bk, knob = backend_set.classes()[ci]
+            with tr.span("group", decision="post", backend=str(bk), knob=str(knob),
+                         n_rows=len(rows), **live_attr):
+                m = base_mask(ipre_exec or pre_exec, pred)
+                d, ids = backend_set.search_class(ci, queries[rows], m, k)
+                if tr.enabled:
+                    tr.annotate(n_candidates=int(m.sum()))
+                finish(rows, pred, d[:, :k], ids[:, :k])
     return out_d, out_i, rounds
 
 
@@ -353,14 +407,14 @@ class CorpusShard:
 
     def search_batch(self, queries: np.ndarray, preds: Sequence[AnyPredicate], k: int,
                      decisions: np.ndarray, ests: np.ndarray,
-                     routes: Optional[np.ndarray] = None,
+                     routes: Optional[np.ndarray] = None, tracer=None,
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Run a planned batch on this shard through the engine's grouped
         executor (live once the shard mutated).  Returns ``(dists (B, k),
         ids (B, k) GLOBAL, expansion_rounds (B,))``."""
         d, ids, rounds = _execute_grouped(
             self.pre_exec, self.ipre_exec, self.post_exec, queries, preds, k, decisions, ests,
-            routes=routes, backend_set=self.backend_set, live=self.live)
+            routes=routes, backend_set=self.backend_set, live=self.live, tracer=tracer)
         return d, self._to_global(ids), rounds
 
 
@@ -419,6 +473,9 @@ class FilteredANNEngine:
             max_segment_frac=self.config.max_segment_frac,
             max_list_drift=self.config.max_list_drift,
         )
+        # the no-op tracer by default; an installed one survives compaction
+        # rebuilds (compact() re-runs build_stats), as the trained heads do
+        self.tracer = getattr(self, "tracer", NULL_TRACER)
         self.build_time_["stats"] = t1 - t0
         self.build_time_["attr_index"] = t2 - t1
         return self
@@ -594,6 +651,49 @@ class FilteredANNEngine:
         self.build_time_["fit"] = time.perf_counter() - t0
         return self
 
+    def swap_planner(self, planner: CorePlanner) -> "FilteredANNEngine":
+        """Install a refit planner head (the online feedback loop's hook).
+        Memoised plans belong to the old head, so the plan cache empties."""
+        self.planner = planner
+        self.plan_cache.clear()
+        self.planner_version += 1
+        return self
+
+    def set_tracer(self, tracer) -> "FilteredANNEngine":
+        """Install a :class:`repro_torch.obs.Tracer` on every serving path
+        (``None`` restores the no-op default)."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        return self
+
+    @staticmethod
+    def _hit_ratio(hits: int, misses: int) -> float:
+        total = hits + misses
+        return round(hits / total, 6) if total else 0.0
+
+    def stats(self) -> dict:
+        """Public serving counters: predicate-cache and plan-cache stats,
+        their hit ratios, the planner head version, the process-global
+        kernel dispatch counts (``repro_torch.kernels.ops``, cumulative
+        over every engine: diff it around the call under measurement), the
+        corpus generation, the compaction count and the live corpus."""
+        out: dict = {"planner_version": self.planner_version}
+        ratios: dict = {}
+        s = self.pred_cache.stats()
+        out["pred_cache"] = s
+        ratios["pred_cache"] = self._hit_ratio(s["hits"], s["misses"])
+        ratios["mask_tier"] = self._hit_ratio(s["mask_hits"], s["mask_misses"])
+        s = self.plan_cache.stats()
+        out["plan_cache"] = s
+        ratios["plan_cache"] = self._hit_ratio(s["hits"], s["misses"])
+        out["cache_hit_ratio"] = ratios
+        from ..kernels import ops
+
+        out["kernel_dispatch"] = ops.dispatch_counts()
+        out["corpus_generation"] = self.corpus_generation
+        out["n_compactions"] = self.n_compactions
+        out["live"] = self.live.stats()
+        return out
+
     # ------------------------------------------------------------------
     # live-corpus mutations
     # ------------------------------------------------------------------
@@ -611,33 +711,39 @@ class FilteredANNEngine:
         v = np.atleast_2d(np.asarray(vectors, np.float32))
         c = np.atleast_2d(np.asarray(cat))
         m = np.atleast_2d(np.asarray(num))
-        removed_cat = removed_num = None
-        if ids is not None:
-            old = np.unique(np.asarray(ids, np.int64))
-            old = old[~self.live.is_deleted(old)]
-            if old.size:      # attrs of the rows about to be tombstoned
-                removed_cat, removed_num = self.live.row_attrs(old)
-        handles = self.live.upsert(v, c, m, ids=ids)
-        if self.attr_index is not None:
-            self.attr_index.extend(c, m)
-            self.pred_cache.invalidate()
-        self.dataset_stats.apply_delta(added_cat=c, added_num=m,
-                                       removed_cat=removed_cat, removed_num=removed_num)
-        ivf = getattr(self, "ivf", None)
-        if ivf is not None:   # keep the drift trigger's assignments current
-            self.live.assign_new(ivf.centroids)
-        self.corpus_generation += 1
+        tr = self.tracer
+        with tr.span("write", op="upsert", n_rows=int(v.shape[0])):
+            removed_cat = removed_num = None
+            if ids is not None:
+                old = np.unique(np.asarray(ids, np.int64))
+                old = old[~self.live.is_deleted(old)]
+                if old.size:      # attrs of the rows about to be tombstoned
+                    removed_cat, removed_num = self.live.row_attrs(old)
+            handles = self.live.upsert(v, c, m, ids=ids)
+            if self.attr_index is not None:
+                self.attr_index.extend(c, m)
+                self.pred_cache.invalidate()
+            self.dataset_stats.apply_delta(added_cat=c, added_num=m,
+                                           removed_cat=removed_cat, removed_num=removed_num)
+            ivf = getattr(self, "ivf", None)
+            if ivf is not None:   # keep the drift trigger's assignments current
+                self.live.assign_new(ivf.centroids)
+            self.corpus_generation += 1
+            tr.annotate(corpus_generation=self.corpus_generation)
         return handles
 
     def delete(self, ids: np.ndarray) -> np.ndarray:
         """Tombstone handles (idempotent); returns the newly dead ones.  No
         index is rewritten: the tombstones compose into every candidate
         mask, backend call and exact popcount at query time."""
-        fresh = self.live.delete(ids)
-        if fresh.size:
-            rc, rn = self.live.row_attrs(fresh)
-            self.dataset_stats.apply_delta(removed_cat=rc, removed_num=rn)
-        self.corpus_generation += 1
+        tr = self.tracer
+        with tr.span("write", op="delete"):
+            fresh = self.live.delete(ids)
+            if fresh.size:
+                rc, rn = self.live.row_attrs(fresh)
+                self.dataset_stats.apply_delta(removed_cat=rc, removed_num=rn)
+            self.corpus_generation += 1
+            tr.annotate(n_dead=int(fresh.size), corpus_generation=self.corpus_generation)
         return fresh
 
     def list_drift(self) -> float:
@@ -671,24 +777,28 @@ class FilteredANNEngine:
         before the rebuild, so the card never holds two corpora.  Returns
         ``id_map``: old handle -> new position (-1 for dead)."""
         t0 = time.perf_counter()
-        vectors, cat, num, id_map = self.live.compacted()
-        planner, head_version = self.planner, self.planner_version
-        est_model, est_gen = self.estimator.model, self.estimator.generation
-        full = getattr(self, "pre_exec", None) is not None
-        for name in ("vectors_dev", "ivf", "pre_exec", "ipre_exec", "post_exec", "live"):
-            self.__dict__.pop(name, None)
-        self.backend_set = None
-        self.vectors, self.cat, self.num = vectors, cat, num
-        if full:
-            self.build()
-        else:
-            self.build_stats()  # planning-only engines stay planning-only
-        self.planner = planner
-        self.planner_version = head_version + 1
-        self.estimator.model = est_model
-        self.estimator.generation = est_gen + 1
-        self.corpus_generation += 1
-        self.n_compactions += 1
+        tr = self.tracer
+        with tr.span("compact"):
+            vectors, cat, num, id_map = self.live.compacted()
+            planner, head_version = self.planner, self.planner_version
+            est_model, est_gen = self.estimator.model, self.estimator.generation
+            full = getattr(self, "pre_exec", None) is not None
+            for name in ("vectors_dev", "ivf", "pre_exec", "ipre_exec", "post_exec", "live"):
+                self.__dict__.pop(name, None)
+            self.backend_set = None
+            self.vectors, self.cat, self.num = vectors, cat, num
+            if full:
+                self.build()
+            else:
+                self.build_stats()  # planning-only engines stay planning-only
+            self.planner = planner
+            self.planner_version = head_version + 1
+            self.estimator.model = est_model
+            self.estimator.generation = est_gen + 1
+            self.corpus_generation += 1
+            self.n_compactions += 1
+            tr.annotate(n_rows=int(vectors.shape[0]), n_compactions=self.n_compactions,
+                        corpus_generation=self.corpus_generation)
         self.build_time_["compaction"] = time.perf_counter() - t0
         return id_map
 
@@ -730,13 +840,31 @@ class FilteredANNEngine:
         predicates (permuted ``Or`` terms included) hit the plan cache.
         Returns ``(plan, plan_overhead_s)``."""
         t0 = time.perf_counter()
-        self.plan_cache.validate_epoch(self._plan_epoch())
-        key = (self._plan_key(pred), int(k))
-        plan = self.plan_cache.get(key)
-        if plan is None:
-            plan = self._plan_cold(pred, k)
-            self.plan_cache.put(key, plan)
+        tr = self.tracer
+        with tr.span("plan", k=int(k)):
+            self.plan_cache.validate_epoch(self._plan_epoch())
+            key = (self._plan_key(pred), int(k))
+            plan = self.plan_cache.get(key)
+            hit = plan is not None
+            if not hit:
+                plan = self._plan_cold(pred, k)
+                self.plan_cache.put(key, plan)
+            tr.annotate(plan_cache="hit" if hit else "miss", decision=plan.strategy,
+                        route=int(plan.route), n_clauses=plan.n_clauses)
         return plan, time.perf_counter() - t0
+
+    def plan(self, pred: AnyPredicate, k: int = 10) -> Tuple[float, int, float]:
+        """Scalar spelling of :meth:`make_plan`: ``(est_selectivity,
+        decision, plan_overhead_s)``; a DNF plan's decision is its dominant
+        clause's."""
+        plan, overhead = self.make_plan(pred, k)
+        return plan.est, plan.decision, overhead
+
+    def plan_ex(self, pred: AnyPredicate, k: int = 10) -> Tuple[float, int, int, float]:
+        """:meth:`plan` plus the routing class: ``(est_selectivity,
+        decision, route, plan_overhead_s)``."""
+        plan, overhead = self.make_plan(pred, k)
+        return plan.est, plan.decision, plan.route, overhead
 
     def explain(self, pred: AnyPredicate, k: int = 10) -> str:
         plan, _ = self.make_plan(pred, k)
@@ -818,8 +946,28 @@ class FilteredANNEngine:
                 plans.append(ExecutionPlan((), 0.0, True, "union"))
         return plans
 
+    def _n_words(self) -> int:
+        return (self.vectors.shape[0] + 31) // 32
+
     def _plan_cold(self, pred: AnyPredicate, k: int) -> ExecutionPlan:
-        return self._plan_rows([pred], [self.estimator.estimate(pred)], k)[0]
+        """Estimate (under a ``predicate_compile`` span) and plan one
+        predicate; an ``Or`` opens one ``clause`` span per unique disjunct."""
+        tr = self.tracer
+        with tr.span("predicate_compile"):
+            m0 = self.pred_cache.misses
+            se = self.estimator.estimate(pred)
+            if tr.enabled:
+                miss = self.pred_cache.misses - m0
+                tr.annotate(estimator="exact" if se.is_exact else "gbm",
+                            pred_cache="miss" if miss else "hit",
+                            bitmap_words=miss * self._n_words())
+        plan = self._plan_rows([pred], [se], k)[0]
+        if tr.enabled and isinstance(pred, Or):
+            for j, c in enumerate(plan.clauses):
+                with tr.span("clause", index=j, decision=STRATEGY_NAMES[c.decision],
+                             backend=c.backend, knob=c.knob, route=c.route):
+                    tr.annotate(est=round(c.est, 6), exact=c.sel_exact)
+        return plan
 
     def make_plan_batch(
         self, preds: Sequence[AnyPredicate], k: int = 10
@@ -828,22 +976,54 @@ class FilteredANNEngine:
         dispatch over the plan-cache misses' conjunctions and DNF clauses.
         Returns ``(plans, overhead)``."""
         t0 = time.perf_counter()
-        self.plan_cache.validate_epoch(self._plan_epoch())
-        plans: List[Optional[ExecutionPlan]] = [None] * len(preds)
-        keys = [(self._plan_key(p), int(k)) for p in preds]
-        miss = []
-        for i, key in enumerate(keys):
-            hit = self.plan_cache.get(key)
-            if hit is None:
-                miss.append(i)
-            else:
-                plans[i] = hit
-        if miss:
-            sub = [preds[i] for i in miss]
-            for i, plan in zip(miss, self._plan_rows(sub, self.estimator.estimate_batch(sub), k)):
-                plans[i] = plan
-                self.plan_cache.put(keys[i], plan)
+        tr = self.tracer
+        b = len(preds)
+        with tr.span("plan", n_preds=b, k=int(k)):
+            self.plan_cache.validate_epoch(self._plan_epoch())
+            plans: List[Optional[ExecutionPlan]] = [None] * b
+            keys = [(self._plan_key(p), int(k)) for p in preds]
+            miss = []
+            for i, key in enumerate(keys):
+                hit = self.plan_cache.get(key)
+                if hit is None:
+                    miss.append(i)
+                else:
+                    plans[i] = hit
+            if miss:
+                sub = [preds[i] for i in miss]
+                with tr.span("predicate_compile", n_preds=len(miss)):
+                    m0 = self.pred_cache.misses
+                    ses = self.estimator.estimate_batch(sub)
+                    if tr.enabled:
+                        n_ex = int(sum(se.is_exact for se in ses))
+                        md = self.pred_cache.misses - m0
+                        tr.annotate(estimator_exact=n_ex, estimator_gbm=len(miss) - n_ex,
+                                    pred_cache_misses=md, bitmap_words=md * self._n_words())
+                for i, plan in zip(miss, self._plan_rows(sub, ses, k)):
+                    plans[i] = plan
+                    self.plan_cache.put(keys[i], plan)
+                n_dnf = sum(isinstance(p, Or) for p in sub)
+                if tr.enabled and n_dnf:
+                    tr.annotate(n_dnf=n_dnf)
+            tr.annotate(plan_cache_hits=b - len(miss), plan_cache_misses=len(miss))
         return plans, time.perf_counter() - t0
+
+    def plan_batch(self, preds: Sequence[AnyPredicate], k: int = 10,
+                   ) -> Tuple[np.ndarray, np.ndarray, float]:
+        """Scalar spelling of :meth:`make_plan_batch`: ``(est_selectivities
+        (B,), decisions (B,), plan_overhead_s)``."""
+        plans, overhead = self.make_plan_batch(preds, k)
+        return (np.asarray([p.est for p in plans], np.float64),
+                np.asarray([p.decision for p in plans], np.int32), overhead)
+
+    def plan_batch_ex(self, preds: Sequence[AnyPredicate], k: int = 10,
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, float]:
+        """Batched :meth:`plan_ex`: also the per-row routing classes
+        (``NO_ROUTE`` for non-post rows or with routing off)."""
+        plans, overhead = self.make_plan_batch(preds, k)
+        return (np.asarray([p.est for p in plans], np.float64),
+                np.asarray([p.decision for p in plans], np.int32),
+                np.asarray([p.route for p in plans], np.int32), overhead)
 
     def shard_corpus(self, n_shards: int, n_lists: Optional[int] = None) -> List[CorpusShard]:
         """Partition the corpus into ``n_shards`` contiguous shards, each
@@ -894,38 +1074,52 @@ class FilteredANNEngine:
             # a union, or a mutated corpus: the grouped (live) executor
             return self._query_grouped(q, pred, k, plan, plan_overhead)
         decision, route = plan.decision, plan.route
-        if decision == INDEXED_PRE:
-            res = self.ipre_exec.search(q, pred, k)
-        elif decision == PRE_FILTER:
-            res = self.pre_exec.search(q, pred, k)
-        elif route >= 0 and self.backend_set is not None:
-            # routed: mask once (bitmap-indexed when covered), then the
-            # chosen backend's masked search at the chosen knob tier
-            t0 = time.perf_counter()
-            mask = self.ipre_exec.candidate_mask(pred)
-            d, ids = self.backend_set.search_class(route, q, mask, k)
-            res = SearchResult(d, ids, time.perf_counter() - t0, "post")
-        else:
-            # the estimate also *parameterises* the post-filter executor
-            res = self.post_exec.search(q, pred, k, est_selectivity=plan.est)
+        tr = self.tracer
+        with tr.span("execute", n_queries=1, k=int(k), live=False,
+                     decision=STRATEGY_NAMES[decision]):
+            kc0, kw0 = _kernel_snapshot() if tr.enabled else ({}, {})
+            if decision == INDEXED_PRE:
+                res = self.ipre_exec.search(q, pred, k)
+            elif decision == PRE_FILTER:
+                res = self.pre_exec.search(q, pred, k)
+            elif route >= 0 and self.backend_set is not None:
+                # routed: mask once (bitmap-indexed when covered), then the
+                # chosen backend's masked search at the chosen knob tier
+                t0 = time.perf_counter()
+                mask = self.ipre_exec.candidate_mask(pred)
+                d, ids = self.backend_set.search_class(route, q, mask, k)
+                res = SearchResult(d, ids, time.perf_counter() - t0, "post")
+            else:
+                # the estimate also *parameterises* the post-filter executor
+                res = self.post_exec.search(q, pred, k, est_selectivity=plan.est)
+            if tr.enabled:
+                _annotate_kernel_delta(tr, kc0, kw0)
         res.backend, res.knob = plan.backend, plan.knob
         res.elapsed += plan_overhead   # end-to-end includes planning (paper §4.1)
         return PlannedResult(res, plan, plan_overhead)
 
     def _execute(self, queries: np.ndarray, preds: Sequence[AnyPredicate], k: int,
-                 plans: Sequence[ExecutionPlan]):
+                 plans: Sequence[ExecutionPlan], span: dict):
         """Run planned rows as clause rows through the grouped executor and
-        collapse DNF rows back: ``(dists, ids, rounds)``, one row each."""
+        collapse DNF rows back, under one ``execute`` span (attributes
+        ``span`` plus the kernel-dispatch deltas): ``(dists, ids, rounds)``, one row
+        each."""
         exp_rows, exp_preds, decisions, ests, routes, row_map = (
             expand_for_execution(preds, plans))
         # no DNF row: the expansion is the identity
         identity = len(exp_preds) == len(preds) and all(len(m) == 1 for m in row_map)
-        d, ids, rounds = _execute_grouped(
-            self.pre_exec, self.ipre_exec, self.post_exec,
-            queries if identity else queries[exp_rows], exp_preds, k, decisions, ests,
-            routes=routes, backend_set=self.backend_set, live=self.live,
-        )
-        return collapse_clause_results(d, ids, rounds, row_map, k)
+        tr = self.tracer
+        with tr.span("execute", **span):
+            kc0, kw0 = _kernel_snapshot() if tr.enabled else ({}, {})
+            d, ids, rounds = _execute_grouped(
+                self.pre_exec, self.ipre_exec, self.post_exec,
+                queries if identity else queries[exp_rows], exp_preds, k, decisions, ests,
+                routes=routes, backend_set=self.backend_set, live=self.live, tracer=tr,
+            )
+            out = collapse_clause_results(d, ids, rounds, row_map, k)
+            if tr.enabled:
+                _annotate_kernel_delta(tr, kc0, kw0)
+        return out
 
     def _query_grouped(self, q: np.ndarray, pred: AnyPredicate, k: int,
                        plan: ExecutionPlan, plan_overhead: float) -> PlannedResult:
@@ -933,7 +1127,10 @@ class FilteredANNEngine:
         decision-group rows merged with cross-clause de-duplication, or any
         query once the corpus mutated."""
         t0 = time.perf_counter()
-        d, ids, rounds = self._execute(q, [pred], k, [plan])
+        span = dict(n_queries=1, k=int(k), live=self.live.dirty)
+        if plan.is_dnf:
+            span.update(decision="dnf", n_clauses=plan.n_clauses)
+        d, ids, rounds = self._execute(q, [pred], k, [plan], span)
         share = time.perf_counter() - t0 + plan_overhead
         return package_results(d, ids, rounds, [plan], share, plan_overhead)[0]
 
@@ -948,7 +1145,8 @@ class FilteredANNEngine:
         plans, plan_overhead = self.make_plan_batch(preds, k)
         plan_share = plan_overhead / max(b, 1)
         t0 = time.perf_counter()
-        d, ids, rounds = self._execute(queries, preds, k, plans)
+        d, ids, rounds = self._execute(queries, preds, k, plans,
+                                       dict(n_queries=b, k=int(k), live=self.live.dirty))
         share = (time.perf_counter() - t0) / max(b, 1) + plan_share
         return package_results(d, ids, rounds, plans, share, plan_share)
 

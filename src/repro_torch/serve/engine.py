@@ -12,7 +12,9 @@ per-request budgets, and the batch stops stepping once every slot is done.
 into contiguous shards (``FilteredANNEngine.shard_corpus``), each query is
 planned once centrally, every shard runs the same plan over its rows, and
 the per-shard top-k lists merge exactly.  Writes go to the central engine
-(the source of truth for every row) and to the owning shard.
+(the source of truth for every row) and to the owning shard.  ``runtime``
+puts an :class:`~repro_torch.runtime.OnlineRuntime` in front of it, and
+``set_tracer``/``stats`` are the reference's observability hooks.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from ..core.engine import FilteredANNEngine, PlannedResult, package_results
 from ..core.plan import collapse_clause_results, expand_for_execution
 from ..core.predicates import AnyPredicate
 from ..dist.collectives import merge_topk_unique
+from ..obs.trace import NULL_TRACER
 
 __all__ = ["Request", "ServeEngine", "ShardedANNEngine"]
 
@@ -136,7 +139,14 @@ class ShardedANNEngine:
         self.n_shards = max(1, n_shards)
         self._n_lists = n_lists
         self.shards = engine.shard_corpus(self.n_shards, n_lists=n_lists)
+        self.tracer = NULL_TRACER
         self._build_locators()
+
+    def set_tracer(self, tracer) -> None:
+        """Install a :class:`repro_torch.obs.Tracer` on the fan-out AND the
+        central engine (planning and write spans come from the latter)."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.engine.set_tracer(tracer)
 
     # ------------------------------------------------------------------
     def _build_locators(self) -> None:
@@ -267,13 +277,47 @@ class ShardedANNEngine:
             expand_for_execution(preds, plans))
         identity = len(exp_preds) == b and all(len(m) == 1 for m in row_map)
         xq = queries if identity else queries[exp_rows]
+        tr = self.tracer
         t0 = time.perf_counter()
-        per_shard = [s.search_batch(xq, exp_preds, k, decisions, ests, routes=routes)
-                     for s in self.shards]
-        d, i = merge_topk_unique(np.stack([r[0] for r in per_shard]),
-                                 np.stack([r[1] for r in per_shard]), k)
-        rounds = np.max(np.stack([r[2] for r in per_shard]), axis=0)
-        if not identity:
-            d, i, rounds = collapse_clause_results(d, i, rounds, row_map, k)
+        per_shard = []
+        with tr.span("shard_fanout", n_shards=len(self.shards), n_queries=len(exp_preds)):
+            for si, s in enumerate(self.shards):
+                with tr.span("shard", shard=si):
+                    per_shard.append(s.search_batch(xq, exp_preds, k, decisions, ests,
+                                                    routes=routes, tracer=tr))
+        with tr.span("merge", n_shards=len(self.shards), k=int(k)):
+            d, i = merge_topk_unique(np.stack([r[0] for r in per_shard]),
+                                     np.stack([r[1] for r in per_shard]), k)
+            rounds = np.max(np.stack([r[2] for r in per_shard]), axis=0)
+            if not identity:
+                d, i, rounds = collapse_clause_results(d, i, rounds, row_map, k)
         share = (time.perf_counter() - t0) / max(b, 1) + plan_share
         return package_results(d, i, rounds, plans, share, plan_share)
+
+    # ------------------------------------------------------------------
+    def stats(self) -> dict:
+        """The central engine's counters plus the shards' predicate caches
+        summed (each shard compiles its own bitmaps) as ``shard_pred_cache``."""
+        out = self.engine.stats()
+        agg = {"hits": 0, "misses": 0, "evictions": 0, "size": 0, "invalidations": 0}
+        n_caches = 0
+        for s in self.shards:
+            cache = s.ipre_exec.cache if s.ipre_exec is not None else None
+            if cache is None:
+                continue
+            n_caches += 1
+            cs = cache.stats()
+            for key in agg:
+                agg[key] += cs[key]
+        if n_caches:
+            agg["n_shards"] = n_caches
+            out["shard_pred_cache"] = agg
+        return out
+
+    def runtime(self, config=None, service=None, feedback=None, tracer=None, probe=None):
+        """A deadline-aware :class:`repro_torch.runtime.OnlineRuntime`
+        micro-batching onto this engine's ``batch_query`` fan-out."""
+        from ..runtime import OnlineRuntime
+
+        return OnlineRuntime(self, config=config, service=service, feedback=feedback,
+                             tracer=tracer, probe=probe)

@@ -48,7 +48,15 @@ def test_importing_every_module_loads_no_jax_or_repro():
                 "repro_torch.kernels.decode_attention", "repro_torch.dist.collectives",
                 "repro_torch.index.pq", "repro_torch.index.acorn",
                 "repro_torch.index.registry", "repro_torch.core.corpus",
-                "repro_torch.dist.fault", "repro_torch.dist.elastic", "torch"):
+                "repro_torch.dist.fault", "repro_torch.dist.elastic",
+                "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.metrics",
+                "repro_torch.obs.probe", "repro_torch.runtime", "repro_torch.runtime.queue",
+                "repro_torch.runtime.scheduler", "repro_torch.runtime.telemetry",
+                "repro_torch.runtime.feedback", "repro_torch.fleet",
+                "repro_torch.fleet.admission", "repro_torch.fleet.autoscale",
+                "repro_torch.fleet.collections", "repro_torch.fleet.fairshare",
+                "repro_torch.fleet.telemetry", "repro_torch.ckpt",
+                "repro_torch.ckpt.checkpoint", "torch"):
         assert mod in loaded, mod
 
 
