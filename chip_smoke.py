@@ -18,6 +18,14 @@ Phases, each printed as it runs:
      CUDA kernel per call (torch.profiler), repeated calls bitwise equal,
      row independence (bitwise) and never reading past a row's length (NaN
      there);
+  3c. the decode kernel's sliding window and softcap against the plain
+     version at gemma2's heads (KV 4, GQ 2, dh 256) and qwen3's (8, 5, 128),
+     B in {1, 8}, S = 8192, bf16 and f32, windows 4096 and 100, softcap 0
+     and 50, lengths below and above the window; NaN outside each row's
+     window, repeated calls, a row alone against the batch and calls after
+     other windows on one cached workspace all give the clean results
+     bitwise; kernel, plain and SDPA (window as a boolean mask; none with a
+     softcap) times beside the bound of min(len, window) positions a row;
   4. the filtered-ANN main path through its public entry points on the
      arxiv dataset at the paper's full size (2.14M x 384): build -> fit ->
      query / batch_query -> ground_truth; then 256 queries under one shared
@@ -34,14 +42,14 @@ Phases, each printed as it runs:
   4c. a routed engine at the same size, backends flat, ivf, ivfpq and
      acorn (the ivf backend shares the engine's IVF): first the flat
      backend below TINY_N rows on the card (the kernel against the numpy
-     scan); build seconds and memory per backend, fit on the first 16 of
+     scan); build seconds and memory per backend, fit on the first 8 of
      phase 4's training queries (8 routing classes raced per query; ACORN's
      host search makes a query cost seconds), phase 4's 200 served
      queries and 32 unions served;
      every id passes its predicate once, flat:exact rows and all-exact
      unions equal ground truth up to ties, batch rows equal query rows; the
      served (decision, backend, knob) mix with latencies, each class's
-     recall@10 over 32 fixed queries beside its floor (printed, not gated:
+     recall@10 over 16 fixed queries beside its floor (printed, not gated:
      the floors were set on a 5,000-row corpus) with every id passing its
      mask once (gated, every class), and ACORN's device search against its
      host search; then a routing head spanning all 8 classes serves 2 rows
@@ -95,25 +103,41 @@ Phases, each printed as it runs:
      bitwise; quiet tenants' SLO hit rates (virtual) beside fleet_bench's
      targets, scale events, build, fit and reshard seconds; everything is
      freed before phase 6;
-  6. LM serving: qwen3-14b at full width and depth in bf16 (random weights
-     from a seed), 16 requests through ServeEngine in 8 slots; decode
-     launches equal 40 x steps, the kernel equals its plain version on the
+  6. LM serving: qwen3-14b at full width and 20 of its 40 layers in bf16
+     (random weights from a seed), 16 requests through ServeEngine in 8
+     slots; decode launches equal 20 x steps, the kernel equals its plain version on the
      model's own cache, the device's idle share of a decode step;
+  6b. the same for gemma2-2b (26 layers, 13 with a 4096 window, softcaps
+     50 and 30) with prompts of 4,200-8,000 tokens and max_len 8192: decode
+     launches equal 26 x steps, the kernel against its plain version on a
+     local and a global layer of the model's cache, each one's device time;
+  6c. the same for olmoe-1b-7b (16 layers of 64 experts, top 8, capacity
+     factor 1.25) with prompts of 256-2048 tokens: launches equal 16 x steps,
+     the (token, expert) assignments dropped per prefill batch, the decode
+     step beside the bound of every expert's weights and of 8 active ones;
   7. RAG: RetrievalAugmentedServer over the phase-6 model and the phase-4
      engine; every id passes its predicate, exact plans equal ground truth;
   8. fp32 exactness at full width and depth 4: batch tokens equal solo
      tokens, and served tokens equal the teacher-forced argmax except at
      near-ties;
+  8b. the same for gemma2-2b (prompts of 4,100-4,600 tokens, past its
+     window) and olmoe-1b-7b at capacity factor 8 (the reference's
+     reduced() choice: no token drops);
+  9. the serve CLI in-process (repro_torch.launch.serve.main): ann-trace
+     over 200,000 rows with 4 shards and the recall probe (the snapshot has
+     the reference CLI's keys, masked_l2_topk launched), then --mode lm for
+     gemma2-2b and olmoe-1b-7b (every request its tokens);
   5. one JSON line listing every kernel, then the card line, then the
      result line {"ok": true, "device": {...}}.
 
 Each path's kernel launch counts are set to 0 just before it and read
-just after it (phases 4, 4b, 4c, 4d, 4e, 6, 7; 4c's routed serving, its
+just after it (phases 4, 4b, 4c, 4d, 4e, 6, 6b, 6c, 7, 9; 4c's routed serving, its
 spanning-head serving and its live serving each; 4d and 4e each as a
 whole, ground truth and rebuilds included, and their serving runs alone:
 in 4e the runtime's own batch_query calls, never the checks of them);
 masked_l2_topk's launches in the kernels line are the sum over phases 4,
-4b, 4c, 4d and 4e (serving runs).  Any failed check raises, so the script
+4b, 4c, 4d and 4e (serving runs), decode_attention's over phases 6, 6b
+and 6c.  Any failed check raises, so the script
 exits non-zero and prints no result.  It needs a CUDA card and the repo's
 ``src/`` beside it, and imports nothing of the JAX package.
 """
@@ -758,11 +782,18 @@ def dnf_phase(mp: dict, k: int = 10, batch: int = 64) -> dict:
 # phase 4c: a routed engine (flat, ivf, ivfpq, acorn) at full size
 # ----------------------------------------------------------------------
 BACKENDS = ("flat", "ivf", "ivfpq", "acorn")
-# phase 4c fits on the first 16 of phase 4's training queries: each one
-# races both ACORN tiers with the host beam search, which took 3.6-13.2 s a
-# training query at 2.14M rows on an H100; at 32 the fit reached 357 s and
-# the script 1,034 s of its 1,200 s (PERF.md section 4)
-ROUTED_TRAIN = 16
+# phase 4c fits on the first 8 of phase 4's training queries and measures
+# each class's recall on 16 fixed queries: both race or run ACORN's host beam
+# search, 1.2-13 s a query at 2.14M rows on an H100 and slower still on a
+# slow host.  At 32 and 32 the fit took 357 s and the script 1,034 s of its
+# 1,200 s; at 16 and 32 a run with the LM phases of gemma2 and olmoe passed
+# 1,320 s, 4c's fit 197 s and its ACORN recall queries ~450 s (PERF.md
+# section 4)
+ROUTED_TRAIN = 8
+ROUTED_FIXED = 16
+# phase 6 serves qwen3-14b at full width but 20 of its 40 layers, so that the
+# script keeps its headroom (PERF.md section 4)
+QWEN_LAYERS = 20
 
 
 def threshold_head(sel_cut: float) -> dict:
@@ -866,7 +897,7 @@ def tiny_flat_check(k: int = 10) -> None:
 
 
 def routed_phase(mp: dict, unions: list, k: int = 10, n_train: int = ROUTED_TRAIN,
-                 n_unions: int = 32, n_fixed: int = 32, batch: int = 64) -> dict:
+                 n_unions: int = 32, n_fixed: int = ROUTED_FIXED, batch: int = 64) -> dict:
     import numpy as np
     import torch
 
@@ -1885,6 +1916,21 @@ def sdpa_call(q, k, v, length):
         q.reshape(b, kv * gq, 1, dh).to(k.dtype), k, v, attn_mask=mask, enable_gqa=True)
 
 
+def time_decode_calls(fns: dict, reps: int, tag: str):
+    """(CUDA-event ms, profiler device ms, kernels per call of "kernel") of
+    each call in ``fns``: the kernel over 20 calls and 10 profiled, the
+    others over ``reps`` and 3 profiled; the kernel must be one launch."""
+    wall = {n: cuda_ms(f, 20 if n == "kernel" else reps) for n, f in fns.items()}
+    prof = {n: device_ms(f, 10, expect=1) if n == "kernel" else device_ms(f, 3)
+            for n, f in fns.items()}
+    on_card = {n: p[0] for n, p in prof.items()}
+    check(all(v > 0 for v in on_card.values()),
+          f"decode_attention {tag}: torch.profiler saw no device time in three windows: {on_card}")
+    per_call = prof["kernel"][1]
+    check(per_call == 1, f"decode_attention {tag}: {per_call} CUDA kernels per call, not 1")
+    return wall, on_card, per_call
+
+
 def ragged_lengths(b: int, s: int, rng, chunk: int) -> list:
     """Lengths in [1, S] with S, 1 and one in the middle of a chunk."""
     if b == 1:
@@ -1946,17 +1992,10 @@ def decode_checks() -> dict:
             print(f"[decode] {tag} lengths {lengths[:4]}: max_abs_err {err:.3g}", flush=True)
             continue
         big = b * s >= 8 * 32768
-        fns = {"kernel": lambda: decode_attention_cuda(q, k, v, length),
-               "plain": lambda: decode_attention_ref(q, k, v, length),
-               "sdpa": lambda: sdpa_call(q, k, v, length)}
-        wall = {n: cuda_ms(f, 20 if n == "kernel" else (3 if big else 10)) for n, f in fns.items()}
-        prof = {n: device_ms(f, 10, expect=1) if n == "kernel" else device_ms(f, 3)
-                for n, f in fns.items()}
-        on_card = {n: p[0] for n, p in prof.items()}
-        check(all(v > 0 for v in on_card.values()),
-              f"decode_attention {tag}: torch.profiler saw no device time in three windows: {on_card}")
-        per_call = prof["kernel"][1]
-        check(per_call == 1, f"decode_attention {tag}: {per_call} CUDA kernels per call, not 1")
+        wall, on_card, per_call = time_decode_calls(
+            {"kernel": lambda: decode_attention_cuda(q, k, v, length),
+             "plain": lambda: decode_attention_ref(q, k, v, length),
+             "sdpa": lambda: sdpa_call(q, k, v, length)}, 3 if big else 10, tag)
         bound, by = decode_bound(lengths, s, kv, gq, dh, k.element_size())
         rows[(b, s, names[dt])] = dict(
             ms=wall["kernel"], plain_ms=wall["plain"], library_ms=wall["sdpa"],
@@ -1984,9 +2023,171 @@ def decode_checks() -> dict:
 
 
 # ----------------------------------------------------------------------
-# phase 6: LM serving at qwen3-14b's full width and depth
+# phase 3c: the decode kernel's sliding window and softcap
 # ----------------------------------------------------------------------
-def lm_serving(n_requests: int = 16, slots: int = 8, new: int = 32, max_len: int = 2088) -> dict:
+WINDOW_HEADS = {"gemma2": (4, 2, 256), "qwen3": (8, 5, 128)}   # (KV, GQ, dh)
+WINDOW_S = 8192
+
+
+def sdpa_window_call(q, k, v, length, window: int):
+    """The library yardstick with a window: one scaled_dot_product_attention
+    call whose boolean mask keeps length - window <= p < length (it reads
+    every position; no single PyTorch call applies a softcap)."""
+    import torch
+
+    b, kv, gq, dh = q.shape
+    pos = torch.arange(k.shape[2], device=q.device)[None, :]
+    keep = (pos < length[:, None]) & (pos >= length[:, None] - window)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.reshape(b, kv * gq, 1, dh).to(k.dtype), k, v, attn_mask=keep[:, None, None, :],
+        enable_gqa=True)
+
+
+def window_lengths(b: int, s: int, window: int, chunk: int) -> list:
+    """Ragged lengths below, at and above the window, and S."""
+    if b == 1:
+        return [s - 5]
+    return [s, 1, window - 1, window, window + 1, window + chunk // 2 + 3, s // 2 + 7, s - 1]
+
+
+def decode_window_checks() -> dict:
+    """The kernel with a window (4096, and 100, no multiple of any chunk) and
+    a softcap (0, 50) against its plain version at gemma2's and qwen3's
+    heads, B in {1, 8}, S = 8192, bf16 and f32: equal within the band; NaN
+    below len - window and from len on never reaches the output (it equals
+    the clean call bitwise); repeated calls and a row alone equal the batch
+    bitwise; calls with other windows between two equal calls on the one
+    cached workspace change nothing (the counters were left at zero)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import chunk_positions, decode_attention_cuda
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    names = {torch.bfloat16: "bf16", torch.float32: "f32"}
+    rows, max_err, n_cases = {}, 0.0, 0
+    for head, (kv, gq, dh) in WINDOW_HEADS.items():
+        for dt in (torch.bfloat16, torch.float32):
+            chunk = chunk_positions(WINDOW_S, dh, torch.finfo(dt).bits // 8)
+            for b in (1, 8):
+                # scores of std ~8, so a cap of 50 bends the largest
+                q = 8.0 * torch.randn((b, kv, gq, dh), generator=g, device=dev)
+                k = torch.randn((b, kv, WINDOW_S, dh), generator=g, device=dev).to(dt)
+                v = torch.randn((b, kv, WINDOW_S, dh), generator=g, device=dev).to(dt)
+                first = {}
+                for window in (4096, 100):
+                    lengths = window_lengths(b, WINDOW_S, window, chunk)
+                    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+                    for cap in (0.0, 50.0):
+                        tag = (f"{head} B={b} KV={kv} GQ={gq} S={WINDOW_S} dh={dh} {names[dt]} "
+                               f"window {window} softcap {cap:g} (chunk {chunk})")
+                        out = decode_attention_cuda(q, k, v, length, window, cap)
+                        torch.cuda.synchronize()
+                        ref = decode_attention_ref(q, k, v, length, window, cap)
+                        err = float((out - ref).abs().max())
+                        check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
+                              f"decode_attention {tag}: err {err}")
+                        max_err = max(max_err, err)
+                        n_cases += 1
+                        check(torch.equal(decode_attention_cuda(q, k, v, length, window, cap), out),
+                              f"decode_attention {tag}: a repeated call differs")
+                        first[(window, cap)] = (out, length)
+                        if b == 8:
+                            for r in (0, 2, 5):
+                                solo = decode_attention_cuda(q[r:r + 1].contiguous(), k[r:r + 1],
+                                                             v[r:r + 1], length[r:r + 1], window,
+                                                             cap)
+                                check(torch.equal(solo[0], out[r]),
+                                      f"decode_attention {tag}: row {r} alone differs from "
+                                      f"the row in the batch")
+                        if b == 8 and dt == torch.bfloat16 and (window, cap) != (100, 50.0):
+                            rows[(head, window, cap)] = window_timing(
+                                q, k, v, length, lengths, window, cap, kv, gq, dh, tag, err)
+                # both windows ran on this shape's one workspace: the first
+                # call's results come back bitwise
+                for (window, cap), (out, length) in first.items():
+                    check(torch.equal(decode_attention_cuda(q, k, v, length, window, cap), out),
+                          f"decode_attention {head} B={b} {names[dt]} window {window} softcap "
+                          f"{cap:g}: differs after calls with other windows on its workspace")
+                # NaN outside each row's window never reaches the output
+                for (window, cap), (out, length) in first.items():
+                    kn, vn = k.clone(), v.clone()
+                    for r, n in enumerate(length.tolist()):
+                        for t in (kn, vn):
+                            t[r, :, :max(0, n - window)] = float("nan")
+                            t[r, :, n:] = float("nan")
+                    nan_out = decode_attention_cuda(q, kn, vn, length, window, cap)
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(nan_out).all()) and torch.equal(nan_out, out),
+                          f"decode_attention {head} B={b} {names[dt]} window {window} softcap "
+                          f"{cap:g} read a position outside a row's window")
+                    del kn, vn
+                del q, k, v, first
+                torch.cuda.empty_cache()
+    print(f"[window] {n_cases} cases within rtol=atol=2e-4 of the plain version (max_abs_err "
+          f"{max_err:.3g}); repeated calls, rows alone and calls after other windows on one "
+          f"workspace equal (bitwise); NaN outside each row's window never reaches the output",
+          flush=True)
+    return {"rows": rows, "max_abs_err": max_err}
+
+
+def window_timing(q, k, v, length, lengths, window, cap, kv, gq, dh, tag, err) -> dict:
+    """Kernel, plain version and (without a softcap) SDPA with the window
+    mask: CUDA-event ms and profiler device ms; the bound counts the bytes
+    of min(len, window) positions a row."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    fns = {"kernel": lambda: decode_attention_cuda(q, k, v, length, window, cap),
+           "plain": lambda: decode_attention_ref(q, k, v, length, window, cap)}
+    if cap == 0:
+        fns["sdpa"] = lambda: sdpa_window_call(q, k, v, length, window)
+    wall, on_card, _ = time_decode_calls(fns, 10, tag)
+    live = [min(int(n), window) for n in lengths]
+    bound, by = decode_bound(live, k.shape[2], kv, gq, dh, k.element_size())
+    lib = wall.get("sdpa")
+    print(f"[window] {tag} positions read {sum(live)} of {sum(lengths)}: kernel "
+          f"{wall['kernel']:.4f} ms (device {on_card['kernel']:.4f}), plain {wall['plain']:.4f} "
+          f"({on_card['plain']:.4f}), sdpa " + (f"{lib:.4f} ({on_card['sdpa']:.4f})" if lib else
+                                                 "none (no PyTorch call applies a softcap)") +
+          f", bound {bound:.6g} ms ({by}); device / bound {on_card['kernel'] / bound:.3f}; "
+          f"max_abs_err {err:.3g}", flush=True)
+    return dict(ms=wall["kernel"], plain_ms=wall["plain"], library_ms=lib,
+                device_ms=on_card["kernel"], plain_device_ms=on_card["plain"],
+                library_device_ms=on_card.get("sdpa"), bound_ms=bound, bound_by=by,
+                max_abs_err=err, lengths=lengths, positions=sum(live))
+
+
+# ----------------------------------------------------------------------
+# phases 6, 6b, 6c: LM serving at full width and depth
+# ----------------------------------------------------------------------
+GEMMA = "gemma2-2b"
+OLMOE = "olmoe-1b-7b"
+
+
+def decode_step_bounds(model, step_lengths) -> dict:
+    """The least time of one decode step, in ms at 3.35 TB/s, for a step
+    whose rows attend to ``step_lengths`` positions: every weight the step
+    reads once (the embedding only as a tied head; a gathered row is
+    nothing) plus each layer's K/V below min(length, window) a row.  For
+    MoE, ``weights`` counts every expert (what the dense (B, E, C, D)
+    dispatch reads) and ``active`` only the top-k experts of one token."""
+    cfg = model.cfg
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    elem = model.embed.element_size()
+    read = w_bytes - (0 if cfg.tie_embeddings else model.embed.numel() * elem)
+    kv = sum(min(int(n), w) for w in model.windows for n in step_lengths) * \
+        cfg.n_kv_heads * cfg.dh * 2 * elem
+    out = {"weights": 1e3 * (read + kv) / H100_BYTES_PER_S, "kv_bytes": kv, "read_bytes": read}
+    if cfg.is_moe:
+        idle = cfg.n_layers * (cfg.n_experts - cfg.top_k_experts) * 3 * cfg.d_model * cfg.d_ff
+        out["active"] = 1e3 * (read - idle * elem + kv) / H100_BYTES_PER_S
+    return out
+
+
+def lm_serving(arch: str = QWEN, plens=(256, 2048), n_requests: int = 16, slots: int = 8,
+               new: int = 32, max_len: int = 2088, tag: str = "lm", n_layers=None) -> dict:
     import numpy as np
     import torch
 
@@ -1994,35 +2195,43 @@ def lm_serving(n_requests: int = 16, slots: int = 8, new: int = 32, max_len: int
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.ref import decode_attention_ref
-    from repro_torch.models import Model
+    from repro_torch.models import Model, layers
     from repro_torch.models.layers import attn_qkv, rms_norm
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_config(QWEN)
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    print(f"[lm] {QWEN}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+    kv_cache = 2 * cfg.n_layers * slots * cfg.n_kv_heads * max_len * cfg.dh * \
+        model.embed.element_size()
+    print(f"[{tag}] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
           f"{cfg.dtype}; {w_bytes / 1e9:.3f} GB of weights initialised on the card in "
-          f"{init_s:.2f} s", flush=True)
+          f"{init_s:.2f} s; KV cache {kv_cache / 1e9:.3f} GB ({slots} slots x {max_len})",
+          flush=True)
 
     rng = np.random.default_rng(0)
-    plens = rng.integers(256, 2049, n_requests)
+    plens = rng.integers(plens[0], plens[1] + 1, n_requests)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
                     max_new_tokens=new) for i, n in enumerate(plens)]
     eng = ServeEngine(model, batch_slots=slots, max_len=max_len)
     prefill, decode = eng._prefill, eng._decode
-    prefill_s, step_ms, positions, last = [], [], [], {}
+    prefill_s, step_ms, step_lengths, last, dropped = [], [], [], {}, []
 
     def timed_prefill(batch, lens):
         torch.cuda.synchronize()
+        n_log = len(layers.moe_drop_log) if layers.moe_drop_log is not None else 0
         t = time.perf_counter()
         out = prefill(batch, lens)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t)
+        if layers.moe_drop_log is not None:
+            dropped.append(int(sum(int(x) for x in layers.moe_drop_log[n_log:])))
         last.update(cache=out[1], lens=lens, tokens=batch["tokens"])
         return out
 
@@ -2032,60 +2241,87 @@ def lm_serving(n_requests: int = 16, slots: int = 8, new: int = 32, max_len: int
         out = decode(cache, tok, lens)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t))
-        positions.append(int((lens + 1).sum()))
+        step_lengths.append((lens + 1).tolist())
         return out
 
     eng._prefill, eng._decode = timed_prefill, timed_decode
+    if cfg.is_moe:
+        layers.moe_drop_log = []
     ops.reset_kernel_launches()
     ops.reset_dispatch_stats()
     t0 = time.perf_counter()
-    results = eng.run(reqs)
+    try:
+        results = eng.run(reqs)
+    finally:
+        layers.moe_drop_log = None
     serve_s = time.perf_counter() - t0
     launches = ops.kernel_launches()
     n_steps = len(step_ms)
     check(launches["decode_attention"] == cfg.n_layers * n_steps,
-          f"decode_attention launched {launches['decode_attention']} times over {n_steps} "
-          f"decode steps of {cfg.n_layers} layers")
+          f"{arch}: decode_attention launched {launches['decode_attention']} times over "
+          f"{n_steps} decode steps of {cfg.n_layers} layers")
     check(all(len(results[r.uid]) == new and all(0 <= t < cfg.vocab_size for t in results[r.uid])
-              for r in reqs), "a request came back without its tokens")
+              for r in reqs), f"{arch}: a request came back without its tokens")
     peak = torch.cuda.max_memory_allocated() / 1e9
     n_tok = sum(len(v) for v in results.values())
     med = float(np.median(step_ms))
-    kv_elem = last["cache"]["k"].element_size()
-    embed_bytes = model.embed.numel() * model.embed.element_size()
-    kv_bytes = float(np.median(positions)) * cfg.n_layers * cfg.n_kv_heads * cfg.dh * 2 * kv_elem
-    bound = 1e3 * (w_bytes - embed_bytes + kv_bytes) / H100_BYTES_PER_S
-    print(f"[lm] served {len(reqs)} requests ({n_tok} tokens; prompts {int(plens.min())}-"
+    mid = step_lengths[int(np.argsort(step_ms)[len(step_ms) // 2])]   # the median step's rows
+    bounds = decode_step_bounds(model, mid)
+    bound = bounds["weights"]
+    print(f"[{tag}] served {len(reqs)} requests ({n_tok} tokens; prompts {int(plens.min())}-"
           f"{int(plens.max())}) in {slots} slots in {serve_s:.2f} s: {n_tok / serve_s:.1f} tokens/s "
           f"end to end", flush=True)
-    print(f"[lm] prefill per batch of {slots}: " + ", ".join(f"{x:.3f} s" for x in prefill_s),
+    print(f"[{tag}] prefill per batch of {slots}: " + ", ".join(f"{x:.3f} s" for x in prefill_s),
           flush=True)
-    print(f"[lm] decode: {n_steps} steps, median {med:.3f} ms/step (p90 "
+    if cfg.is_moe:
+        print(f"[{tag}] (token, expert) assignments dropped per prefill batch (capacity factor "
+              f"{cfg.capacity_factor}): {dropped} of " + ", ".join(
+                  str(slots * int(max(plens[i:i + slots])) * cfg.top_k_experts * cfg.n_layers)
+                  for i in range(0, n_requests, slots)), flush=True)
+    extra = (f"; {bounds['active']:.3f} ms counting the {cfg.top_k_experts} active experts of a "
+             f"token, step / that bound {med / bounds['active']:.3f}") if cfg.is_moe else ""
+    print(f"[{tag}] decode: {n_steps} steps, median {med:.3f} ms/step (p90 "
           f"{np.percentile(step_ms, 90):.3f}), {slots / med * 1e3:.1f} tokens/s in decode; bound "
-          f"{bound:.3f} ms/step (weights read {(w_bytes - embed_bytes) / 1e9:.3f} GB + KV "
-          f"{kv_bytes / 1e9:.3f} GB at 3.35 TB/s; {1e3 * (w_bytes + kv_bytes) / H100_BYTES_PER_S:.3f}"
-          f" ms counting every weight), step / bound {med / bound:.3f}", flush=True)
-    print(f"[lm] decode_attention launches {launches['decode_attention']} = {cfg.n_layers} x "
+          f"{bound:.3f} ms/step (weights read {bounds['read_bytes'] / 1e9:.3f} GB + KV "
+          f"{bounds['kv_bytes'] / 1e9:.3f} GB at 3.35 TB/s), step / bound {med / bound:.3f}"
+          + extra, flush=True)
+    print(f"[{tag}] decode_attention launches {launches['decode_attention']} = {cfg.n_layers} x "
           f"{n_steps} steps; peak memory {peak:.2f} GB", flush=True)
 
-    # the kernel against its plain version on the model's own cache
+    # the kernel against its plain version on the model's own cache, at the
+    # first and the last layer (gemma2: a local and a global one), and its
+    # device time per call there
     cache, lens, toks = last["cache"], last["lens"], last["tokens"]
     rows = torch.arange(toks.shape[0], device=toks.device)
     x = model._embed(toks[rows, lens.long() - 1][:, None])
-    cache_err = 0.0
+    cache_err, layer_ms = 0.0, {}
     for layer in (0, cfg.n_layers - 1):
-        lp = model.layers[layer]
+        lp, w = model.layers[layer], model.windows[layer]
         q = attn_qkv(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, lens.long()[:, None])[0]
         q = q[:, 0].float().contiguous()
         kc, vc = cache["k"][layer], cache["v"][layer]
-        out = decode_attention_cuda(q, kc, vc, lens.to(torch.int32))
-        ref = decode_attention_ref(q, kc, vc, lens)
+        length = lens.to(torch.int32)
+        out = decode_attention_cuda(q, kc, vc, length, w, cfg.attn_softcap)
+        ref = decode_attention_ref(q, kc, vc, lens, w, cfg.attn_softcap)
         err = float((out - ref).abs().max())
         check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
-              f"decode_attention on the model's cache, layer {layer}: err {err}")
+              f"{arch}: decode_attention on the model's cache, layer {layer}: err {err}")
         cache_err = max(cache_err, err)
-    print(f"[lm] kernel vs plain on the model's cache after prefill (layers 0 and "
-          f"{cfg.n_layers - 1}, lengths {lens.tolist()}): max_abs_err {cache_err:.3g}", flush=True)
+        layer_ms[layer] = device_ms(
+            lambda: decode_attention_cuda(q, kc, vc, length, w, cfg.attn_softcap), 10, expect=1)[0]
+    n_local = sum(w < max_len for w in model.windows)
+    lo_ms, hi_ms = layer_ms[0], layer_ms[cfg.n_layers - 1]
+    if 0 < n_local < cfg.n_layers:      # layer 0 local, the last layer global
+        per_step = (f"{n_local} local x {lo_ms:.4f} + {cfg.n_layers - n_local} global x "
+                    f"{hi_ms:.4f} = {n_local * lo_ms + (cfg.n_layers - n_local) * hi_ms:.4f} ms; "
+                    f"local / global {lo_ms / hi_ms:.3f} against window / mean length "
+                    f"{cfg.sliding_window / float(lens.float().mean()):.3f}")
+    else:
+        per_step = f"{cfg.n_layers} x {(lo_ms + hi_ms) / 2:.4f} ms"
+    print(f"[{tag}] kernel vs plain on the model's cache after prefill (layers 0 and "
+          f"{cfg.n_layers - 1}, lengths {lens.tolist()}): max_abs_err {cache_err:.3g}; device "
+          f"ms per call {lo_ms:.4f} (layer 0) and {hi_ms:.4f} (layer {cfg.n_layers - 1}); "
+          f"per step about {per_step}", flush=True)
     last.clear()
     del cache
 
@@ -2094,19 +2330,24 @@ def lm_serving(n_requests: int = 16, slots: int = 8, new: int = 32, max_len: int
         out = np.asarray(results[r.uid])
         seq = np.concatenate([r.prompt, out[:-1].astype(np.int32)])
         h, _ = model._hidden({"tokens": seq[None]})
+        # logits only from the last prompt position on (a whole 8,000-token
+        # row of 256,000 fp32 logits would be 8.2 GB)
         tf = model._logits(h[:, len(r.prompt) - 1:])[0].argmax(-1).cpu().numpy()
         agree += int((tf == out).sum())
-    print(f"[lm] served tokens equal to the teacher-forced argmax: {agree}/{n_tok} = "
+        del h
+    print(f"[{tag}] served tokens equal to the teacher-forced argmax: {agree}/{n_tok} = "
           f"{agree / n_tok:.4f} (bf16, not gated: prefill and decode round at other places)",
           flush=True)
-    idle, attn_ms = decode_idle_share(model, reqs[:slots], max_len, med)
+    idle, attn_ms = decode_idle_share(model, reqs[:slots], max_len, med, tag=tag)
     return {"model": model, "launches": launches, "step_ms": med, "bound_ms": bound,
-            "attention_ms_per_step": attn_ms,
+            "bounds": bounds, "attention_ms_per_step": attn_ms, "layer_ms": layer_ms,
             "tokens_per_s": n_tok / serve_s, "prefill_s": prefill_s, "peak_gb": peak,
-            "idle_share": idle, "cache_err": cache_err}
+            "idle_share": idle, "cache_err": cache_err, "dropped": dropped,
+            "agree": agree / n_tok}
 
 
-def decode_idle_share(model, reqs, max_len: int, step_ms: float, n: int = 8) -> float:
+def decode_idle_share(model, reqs, max_len: int, step_ms: float, n: int = 8,
+                      tag: str = "lm") -> float:
     """Device busy time of n decode steps under torch.profiler, as
     ServeEngine runs them (argmax copied to the host each step), against
     the un-profiled median step wall time."""
@@ -2137,12 +2378,12 @@ def decode_idle_share(model, reqs, max_len: int, step_ms: float, n: int = 8) -> 
     ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in ka) / 1e3 / n
     if busy <= 0:
-        print("[lm] decode step device time not measured (profiler saw none)", flush=True)
+        print(f"[{tag}] decode step device time not measured (profiler saw none)", flush=True)
         return float("nan"), float("nan")
     top = sorted(ka, key=lambda e: -e.self_device_time_total)[:5]
     attn = sum(e.self_device_time_total for e in ka if "decode_attention" in e.key) / 1e3 / n
     idle = 1.0 - busy / step_ms
-    print(f"[lm] decode step under torch.profiler: device busy {busy:.3f} ms/step against the "
+    print(f"[{tag}] decode step under torch.profiler: device busy {busy:.3f} ms/step against the "
           f"un-profiled {step_ms:.3f} ms/step (device idle share {idle:.3f}; profiled wall "
           f"{wall:.3f} ms/step); decode_attention kernel {attn:.4f} ms/step; top: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / 1e3 / n:.3f} ms" for e in top), flush=True)
@@ -2211,9 +2452,10 @@ def rag_phase(model, mp: dict, k: int = 10) -> dict:
 
 
 # ----------------------------------------------------------------------
-# phase 8: fp32 exactness at full width, depth 4
+# phases 8, 8b: fp32 exactness at full width, depth 4
 # ----------------------------------------------------------------------
-def fp32_exactness(n_layers: int = 4, new: int = 16) -> dict:
+def fp32_exactness(arch: str = QWEN, n_layers: int = 4, new: int = 16, plens=(64, 512),
+                   tag: str = "fp32", **overrides) -> dict:
     import numpy as np
     import torch
 
@@ -2221,20 +2463,20 @@ def fp32_exactness(n_layers: int = 4, new: int = 16) -> dict:
     from repro_torch.models import Model
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = dataclasses.replace(get_config(QWEN), n_layers=n_layers, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32", **overrides)
     torch.cuda.reset_peak_memory_stats()
     model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
-               for n in rng.integers(64, 513, 4)]
-    max_len = 512 + new
+               for n in rng.integers(plens[0], plens[1] + 1, 4)]
+    max_len = plens[1] + new
     batch = ServeEngine(model, batch_slots=4, max_len=max_len).run(
         [Request(uid=i, prompt=p, max_new_tokens=new) for i, p in enumerate(prompts)])
     for i, p in enumerate(prompts):
         solo = ServeEngine(model, batch_slots=1, max_len=max_len).run(
             [Request(uid=0, prompt=p, max_new_tokens=new)])[0]
-        check(solo == batch[i], f"fp32: prompt {i} ({len(p)} tokens) served alone gives {solo}, "
-                                f"in the batch {batch[i]}")
+        check(solo == batch[i], f"{arch} fp32: prompt {i} ({len(p)} tokens) served alone gives "
+                                f"{solo}, in the batch {batch[i]}")
     near = 0
     for i, p in enumerate(prompts):
         out = np.asarray(batch[i])
@@ -2244,15 +2486,74 @@ def fp32_exactness(n_layers: int = 4, new: int = 16) -> dict:
         tie = ((top2[:, 0] - top2[:, 1]) < 1e-4 * logits.abs().max(-1).values).cpu().numpy()
         differ = logits.argmax(-1).cpu().numpy() != out
         check(not (differ & ~tie).any(),
-              f"fp32: prompt {i}: served tokens differ from the teacher-forced argmax at "
+              f"{arch} fp32: prompt {i}: served tokens differ from the teacher-forced argmax at "
               f"{np.flatnonzero(differ & ~tie).tolist()}")
         near += int(tie.sum())
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[fp32] {QWEN} full width, {n_layers} layers, fp32: {len(prompts)} ragged requests "
-          f"({[len(p) for p in prompts]} tokens) x {new} new: batch tokens equal solo tokens; served "
-          f"tokens equal the teacher-forced argmax ({near} positions with a top-2 gap below "
-          f"1e-4 x max|logit| exempt); peak memory {peak:.2f} GB", flush=True)
+    what = ", ".join(f"{k} {v}" for k, v in overrides.items())
+    print(f"[{tag}] {arch} full width, {n_layers} layers, fp32{', ' + what if what else ''}: "
+          f"{len(prompts)} ragged requests ({[len(p) for p in prompts]} tokens) x {new} new: batch "
+          f"tokens equal solo tokens; served tokens equal the teacher-forced argmax ({near} "
+          f"positions with a top-2 gap below 1e-4 x max|logit| exempt); peak memory {peak:.2f} GB",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
     return {"near_ties": near}
+
+
+# ----------------------------------------------------------------------
+# phase 9: the serve CLI on the card
+# ----------------------------------------------------------------------
+# the top-level keys of the reference CLI's ann-trace snapshot (repro.launch.serve
+# with --probe-rate > 0), which the port's must have
+CLI_SNAPSHOT_KEYS = (
+    "backend_counts", "batch_sizes", "deadline_flushes", "deadline_met", "deadline_missed",
+    "engine", "fill_rate", "latency_by_tier", "latency_virtual", "mean_expansions", "n_batches",
+    "n_compactions", "n_completed", "n_deletes", "n_upserts", "plan_counts", "probe",
+    "queue_wait_virtual", "span_summary", "wall")
+
+
+def cli_phase() -> dict:
+    """``repro_torch.launch.serve.main`` in-process: the ann-trace mode over
+    a 200,000-row corpus with 4 shards and the recall probe, then ``--mode
+    lm`` for gemma2-2b and olmoe-1b-7b (reduced, as the reference's)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spans = Path(tmp) / "spans.jsonl"
+        ops.reset_kernel_launches()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            snap = serve.main(["--mode", "ann-trace", "--corpus", "200000", "--requests", "400",
+                               "--shards", "4", "--probe-rate", "0.1", "--trace-out",
+                               str(spans)])
+        launches = ops.kernel_launches()
+        n_spans = sum(1 for _ in spans.open())
+    check(tuple(sorted(snap)) == CLI_SNAPSHOT_KEYS,
+          f"the CLI's snapshot keys {sorted(snap)} are not the reference's {CLI_SNAPSHOT_KEYS}")
+    check(snap["n_completed"] == 400, f"the CLI completed {snap['n_completed']} of 400 requests")
+    check(launches["masked_l2_topk"] > 0, "the CLI's ann-trace launched masked_l2_topk no time")
+    ann_s = time.perf_counter() - t0
+    lines = text.getvalue().splitlines()
+    print(f"[cli] ann-trace --corpus 200000 --requests 400 --shards 4 --probe-rate 0.1: "
+          f"{ann_s:.1f} s; snapshot keys as the reference's; {n_spans} spans written; "
+          f"masked_l2_topk launches {launches['masked_l2_topk']}; plans {snap['plan_counts']}; "
+          + next(ln for ln in lines if ln.startswith("runtime exec wall")), flush=True)
+    for arch in (GEMMA, OLMOE):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            results = serve.main(["--mode", "lm", "--arch", arch, "--requests", "8",
+                                  "--new-tokens", "16"])
+        check(sorted(results) == list(range(8)) and all(len(t) == 16 for t in results.values()),
+              f"the CLI's --mode lm --arch {arch} did not serve every request its 16 tokens")
+        print(f"[cli] --mode lm --arch {arch}: " + text.getvalue().splitlines()[0], flush=True)
+    return {"launches": launches, "seconds": time.perf_counter() - t0}
 
 
 def main(argv=None) -> int:
@@ -2282,6 +2583,7 @@ def main(argv=None) -> int:
     build_kernels()
     kc = kernel_checks(2_140_000, 384)
     dc = decode_checks()
+    wc = decode_window_checks()
     mp = main_path(args.rows, args.train, args.serve, args.batch)
     dnf = dnf_phase(mp)
     rt = routed_phase(mp, dnf["unions"])
@@ -2290,16 +2592,39 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lv = live_phase(mp)
     ru = runtime_phase(mp)
-    lm = lm_serving()
+    t_phase = time.perf_counter()
+    lm = lm_serving(n_layers=QWEN_LAYERS)
+    print(f"[lm] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     rag_phase(lm["model"], mp)
     del lm["model"], mp["engine"]
     gc.collect()
     torch.cuda.empty_cache()
+    served = [lm]
+    for arch, plens, max_len, tag in ((GEMMA, (4200, 8000), 8192, "gemma2"),
+                                      (OLMOE, (256, 2048), 2088, "olmoe")):
+        t_phase = time.perf_counter()
+        out = lm_serving(arch, plens=plens, max_len=max_len, tag=tag)
+        del out["model"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        served.append(out)
+        print(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
     fp32_exactness()
+    # gemma2: prompts past its 4096 window; olmoe at the reference's reduced()
+    # capacity factor 8, so that no token drops and a row's capacity does not
+    # depend on its batch's padded length
+    fp32_exactness(GEMMA, plens=(4100, 4600), tag="fp32b")
+    fp32_exactness(OLMOE, tag="fp32b", capacity_factor=8.0)
+    print(f"[fp32] phases 8 and 8b took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    cli_phase()
+    print(f"[cli] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     head = kc["rows"][(1, 2_140_000, 10)]
     b256 = kc["rows"][(256, 2_140_000, 10)]
     dhead = dc["rows"][(8, 2088, "bf16")]
+    wrow, wcap = wc["rows"][("gemma2", 4096, 0.0)], wc["rows"][("gemma2", 4096, 50.0)]
     kernels = [{
         "name": "masked_l2_topk",
         "route": "cuda",
@@ -2318,8 +2643,12 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:29",
-        "launches": lm["launches"]["decode_attention"],
-        "max_abs_err": max(dc["max_abs_err"], lm["cache_err"]),
+        "launches": sum(p["launches"]["decode_attention"] for p in served),
+        "launches_by_phase": {"6": lm["launches"]["decode_attention"],
+                              "6b": served[1]["launches"]["decode_attention"],
+                              "6c": served[2]["launches"]["decode_attention"]},
+        "max_abs_err": max(dc["max_abs_err"], wc["max_abs_err"],
+                           *(p["cache_err"] for p in served)),
         "ms": dhead["ms"], "plain_ms": dhead["plain_ms"], "bound_ms": dhead["bound_ms"],
         "bound_by": dhead["bound_by"], "library_ms": dhead["library_ms"],
         "device_ms": dhead["device_ms"], "plain_device_ms": dhead["plain_device_ms"],
@@ -2327,6 +2656,13 @@ def main(argv=None) -> int:
         "launches_per_call": dhead["launches_per_call"], "chunk": dhead["chunk"],
         "shape": {"B": 8, "KV": 8, "GQ": 5, "S": 2088, "dh": 128, "kv_dtype": "bf16",
                   "positions": sum(dhead["lengths"])},
+        "window": {k: wrow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                         "device_ms", "plain_device_ms", "library_device_ms",
+                                         "max_abs_err")},
+        "window_shape": {"B": 8, "KV": 4, "GQ": 2, "S": WINDOW_S, "dh": 256, "kv_dtype": "bf16",
+                         "window": 4096, "softcap": 0.0, "positions": wrow["positions"]},
+        "window_softcap": {k: wcap[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                "device_ms")},
         "check": "ok",
     }]
     print(json.dumps({"kernels": kernels}))

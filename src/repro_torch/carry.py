@@ -204,7 +204,10 @@ def model_params_from_reference(cfg, params: Dict, device=DEFAULT_DEVICE) -> Mod
     ``params`` is the reference's tree as numpy arrays (``jax.tree.map(
     np.asarray, params)``).  Its ``layers`` subtree is stacked on a leading
     layer axis (the reference inits layers with ``jax.vmap``); layer i of
-    the port gets row i.  Every array is cast to ``cfg.dtype`` on loading.
+    the port gets row i, nested dicts by dotted names (an MoE layer's
+    ``ffn.router``, ``ffn.w_gate`` (E, d, f), ``ffn.shared.w_up``; gemma2's
+    post-norms ``ln1b``, ``ln2b``).  Every array is cast to ``cfg.dtype`` on
+    loading.
     """
     model = Model(cfg, device=device)
     state = {"embed": params["embed"], "final_ln": params["final_ln"]}

@@ -1,14 +1,19 @@
 """Config registry: ``get_config("<arch-id>")``.
 
-Holds the configurations the port can serve: the dense family without
-attention softcap or sliding windows (``models.model.Model`` refuses the
-rest).  Other architectures join with their families (ROADMAP Queue 1).
+Holds the configurations the port can serve: the dense family (qwen3-14b,
+gemma2-2b with its sliding windows and softcaps) and the MoE family
+(olmoe-1b-7b; llama4-scout, whose ~109B parameters do not fit one card,
+served reduced).  Other architectures join with their families (ROADMAP
+Queue 1); ``models.model.Model`` refuses them.
 """
 from .base import ModelConfig, SHAPES, ShapeSpec
 
+from .gemma2_2b import CONFIG as _gemma2_2b
 from .qwen3_14b import CONFIG as _qwen3_14b
+from .olmoe_1b_7b import CONFIG as _olmoe
+from .llama4_scout_17b_a16e import CONFIG as _llama4
 
-REGISTRY = {c.name: c for c in [_qwen3_14b]}
+REGISTRY = {c.name: c for c in [_gemma2_2b, _qwen3_14b, _olmoe, _llama4]}
 
 ARCH_IDS = sorted(REGISTRY)
 

@@ -3,8 +3,11 @@
 // Replaces the TPU kernel `_kernel` in src/repro/kernels/decode_attention.py
 // (launched by `decode_attention_kernel`).  For each sequence b and kv head
 // it returns, for the GQ query heads grouped on that kv head,
-//     out[g] = sum_p softmax_p(q[g] . k[p] / sqrt(dh)) v[p]
-// over the positions p < length[b] of the (B, KV, S, dh) caches.  q, the
+//     out[g] = sum_p softmax_p(cap(q[g] . k[p] / sqrt(dh))) v[p]
+// over the positions length[b] - window <= p < length[b] of the (B, KV, S, dh)
+// caches, where cap(x) = softcap * tanh(x / softcap) when softcap > 0 and x
+// otherwise: the reference's decode_attention_xla contract (gemma2 decodes
+// with a 4096 window on every other layer and a softcap of 50).  q, the
 // accumulation and out are fp32; K/V are read as float or bf16.
 //
 // What bounds it on an H100 SXM (3.35 TB/s HBM): the bytes of K and V.  It
@@ -71,6 +74,19 @@
 //     workspace and its counters, zeroed once; the kernel leaves them zero.
 //     Two calls that run at once on different streams must not share a
 //     workspace, so the wrapper keys it on the stream.
+//   * The window and the softcap are launch arguments, not template
+//     parameters (a template flag would double the 64 instantiations' build).
+//     With lo = max(0, len - window), a block whose chunk lies wholly below
+//     lo exits at once, as one past the length does; the live chunks are
+//     c_lo = lo / chunk .. the last, and the arrival count and the combine
+//     span exactly those, so the counters are still left at zero.  In the
+//     first live chunk the warps start at the sub-tile holding lo, and that
+//     sub-tile's copies start at lo: no position below lo is read, and its
+//     rows below lo get p = 0 and are left out of the V sum, as rows past the
+//     copied count are.  The chunk grid does not move with the window, so a
+//     row is bitwise the same alone or in a batch.  The softcap is applied in
+//     natural units before the log2(e) factor.  With window >= len and no
+//     softcap every block does what it did before both existed.
 // Within a warp, a K/V row is read as 16-byte pieces by LPR lanes, the GQ
 // queries sit in registers and one K/V element serves every head of the group.
 #include <cuda_bf16.h>
@@ -196,7 +212,8 @@ template <typename T, int DH, int GQM, bool PAD>
 __global__ void __launch_bounds__(THREADS, min_blocks(GQM))
 decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ lengths, int B, int KV,
-                        int S, int gq, int chunk, int n_chunks, int n_stages,
+                        int S, int gq, int chunk, int n_chunks, int window, float softcap,
+                        int n_stages,
                         float* __restrict__ part, int* __restrict__ counters,
                         float* __restrict__ out) {
   constexpr int ELEM = sizeof(T);
@@ -229,8 +246,12 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
   }
   const int start = c * chunk;
   if (start >= len) return;                           // past the row's length
+  const int lo = len > window ? len - window : 0;     // the window's first position
+  if (start + chunk <= lo) return;                    // wholly below the window
   const int n = min(chunk, len - start);
-  const int nc = (len + chunk - 1) / chunk;           // the row's live chunks
+  const int c_lo = lo / chunk;                        // the row's first live chunk
+  const int nc = (len + chunk - 1) / chunk - c_lo;    // the row's live chunks
+  const int skip = lo > start ? lo - start : 0;       // rows of this chunk below lo
 
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[WARPS][MAX_STAGES];
@@ -240,22 +261,25 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
 
   const int sub = lane % LPR, rg = lane / LPR;
   unsigned char* ring = smem + (size_t)warp * n_stages * STAGE_BYTES;
-  const int n_sub = (n + R - 1) / R;                  // sub-tiles in the chunk
-  const int mine = n_sub > warp ? (n_sub - 1 - warp) / WARPS + 1 : 0;
+  const int s_lo = skip / R;                          // the first live sub-tile
+  const int n_live = (n + R - 1) / R - s_lo;          // live sub-tiles in the chunk
+  const int mine = n_live > warp ? (n_live - 1 - warp) / WARPS + 1 : 0;
   const T* kb = k + (bk * S + start) * DH;
   const T* vb = v + (bk * S + start) * DH;
 
-  // lane 0: copy this warp's i-th sub-tile (chunk sub-tile warp + i * WARPS)
-  // into stage i % n_stages; K in the first half, V in the second
+  // lane 0: copy this warp's i-th sub-tile (chunk sub-tile s_lo + warp +
+  // i * WARPS) into stage i % n_stages, K in the first half, V in the second,
+  // from the row `first` on (rows below lo stay uncopied)
   auto fetch = [&](int i) {
-    const int r0 = (warp + i * WARPS) * R;
-    const uint32_t bytes = (uint32_t)min(R, n - r0) * ROW_BYTES;
+    const int r0 = (s_lo + warp + i * WARPS) * R;
+    const int first = skip > r0 ? skip - r0 : 0;
+    const uint32_t bytes = (uint32_t)(min(R, n - r0) - first) * ROW_BYTES;
     const int stage = i % n_stages;
-    const uint32_t dst = smem_u32(ring + stage * STAGE_BYTES);
+    const uint32_t dst = smem_u32(ring + stage * STAGE_BYTES) + first * ROW_BYTES;
     const uint32_t bar = smem_u32(&bars[warp][stage]);
     mbar_expect(bar, 2 * bytes);
-    bulk_load(dst, kb + (size_t)r0 * DH, bytes, bar);
-    bulk_load(dst + STAGE_BYTES / 2, vb + (size_t)r0 * DH, bytes, bar);
+    bulk_load(dst, kb + (size_t)(r0 + first) * DH, bytes, bar);
+    bulk_load(dst + STAGE_BYTES / 2, vb + (size_t)(r0 + first) * DH, bytes, bar);
   };
   if (lane == 0) {
     for (int s = 0; s < n_stages; ++s) mbar_init(smem_u32(&bars[warp][s]));
@@ -282,8 +306,10 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
         qr[g][t * VEC + h + 3] = x.w;
       }
 
-  // scores are kept as log2-domain logits: s = q.k * log2(e) / sqrt(dh)
+  // scores are kept as log2-domain logits: s = q.k * log2(e) / sqrt(dh), or
+  // with a softcap s = softcap * tanh(q.k / sqrt(dh) / softcap) * log2(e)
   const float scale = LOG2E / sqrtf((float)DH);
+  const float inv_sqrt_dh = 1.f / sqrtf((float)DH);
   float m_run[GQM], l_run[GQM], acc[GQM][EPL];
 #pragma unroll
   for (int g = 0; g < GQM; ++g) {
@@ -296,7 +322,9 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < mine; ++i) {
     const int stage = i % n_stages;
     mbar_wait(smem_u32(&bars[warp][stage]), (i / n_stages) & 1);
-    const int rows = min(R, n - (warp + i * WARPS) * R);
+    const int r0 = (s_lo + warp + i * WARPS) * R;
+    const int rows = min(R, n - r0);                  // rows [first, rows) are live
+    const int first = skip > r0 ? skip - r0 : 0;
     const T* ks = reinterpret_cast<const T*>(ring + stage * STAGE_BYTES);
     const T* vs = reinterpret_cast<const T*>(ring + stage * STAGE_BYTES + STAGE_BYTES / 2);
 
@@ -344,8 +372,8 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
         for (int g = 0; g < GQM; ++g) pd[j][g] += __shfl_xor_sync(FULL, pd[j][g], off);
 
     // online softmax over sub-tiles: the sub-tile's max over every lane,
-    // the running state rescaled once, one exp per (row, head); rows past
-    // the copied count get p = 0
+    // the running state rescaled once, one exp per (row, head); rows outside
+    // [first, rows) (below the window, past the copied count) get p = 0
     const int j0 = (sub / DUP) * JF;                  // this lane's first row index
     float mt[GQM];
 #pragma unroll
@@ -353,7 +381,12 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
       mt[g] = -INFINITY;
 #pragma unroll
       for (int j = 0; j < JF; ++j) {
-        pd[j][g] = (j0 + j) * RPW + rg < rows ? pd[j][g] * scale : -INFINITY;
+        const int r = (j0 + j) * RPW + rg;
+        const bool live = r >= first && r < rows;
+        if (softcap > 0.f)
+          pd[j][g] = live ? softcap * tanhf(pd[j][g] * inv_sqrt_dh / softcap) * LOG2E : -INFINITY;
+        else
+          pd[j][g] = live ? pd[j][g] * scale : -INFINITY;
         mt[g] = fmaxf(mt[g], pd[j][g]);
       }
 #pragma unroll
@@ -383,7 +416,7 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < STEPS; ++j) {
       const int r = j * RPW + rg;
-      if (r < rows) {
+      if (r >= first && r < rows) {
         float vx[EPL], w[GP];
 #pragma unroll
         for (int t = 0; t < NV; ++t)
@@ -501,7 +534,8 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   if (!is_last) return;
   constexpr int BATCH = 16;
-  const float4* acc4 = reinterpret_cast<const float4*>(part_acc + pc * ng * DH);
+  const size_t pl = pc + c_lo;                         // the row's first live partial
+  const float4* acc4 = reinterpret_cast<const float4*>(part_acc + pl * ng * DH);
   const size_t stride = (size_t)ng * DH / 4;           // one chunk's partial
   // this thread's first BATCH chunks' loads go out now and land while the
   // weights are made; loads are unconditional (a batch past the last chunk
@@ -517,8 +551,8 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
   float* l_s = red_acc + MAX_CHUNKS * GQM;             // [nc][ng]
   float* inv_s = l_s + MAX_CHUNKS * GQM;               // [ng]
   for (int i = tid; i < nc * ng; i += THREADS) {
-    w_s[i] = __ldcg(part_m + pc * ng + i);
-    l_s[i] = __ldcg(part_l + pc * ng + i);
+    w_s[i] = __ldcg(part_m + pl * ng + i);
+    l_s[i] = __ldcg(part_l + pl * ng + i);
   }
   __syncthreads();
   if (tid < ng) {
@@ -534,7 +568,7 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
     inv_s[tid] = l;
   }
   __syncthreads();
-  // acc: four columns a thread, BATCH chunks at a time, summed in chunk order
+  // acc: four columns a thread, BATCH live chunks at a time, summed in chunk order
   for (int i = tid; i < ng * DH / 4; i += THREADS) {
     const int g = i / (DH / 4);
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -562,8 +596,8 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH, int GQM, bool PAD>
 int launch(const float* q, const T* k, const T* v, const int* lengths, int B, int KV, int S,
-           int gq, int chunk, int n_chunks, float* part, int* counters, float* out,
-           cudaStream_t stream) {
+           int gq, int chunk, int n_chunks, int window, float softcap, float* part,
+           int* counters, float* out, cudaStream_t stream) {
   constexpr int R = sub_rows(DH, (int)sizeof(T));
   const int passes = chunk / (WARPS * R);
   const int n_stages = passes < MAX_STAGES ? passes : MAX_STAGES;
@@ -581,16 +615,18 @@ int launch(const float* q, const T* k, const T* v, const int* lengths, int B, in
     allowed = smem;
   }
   kernel<<<dim3(n_chunks, KV, B), THREADS, smem, stream>>>(
-      q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, n_stages, part, counters, out);
+      q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, window, softcap, n_stages, part, counters,
+      out);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DH>
 int launch_gq(const float* q, const T* k, const T* v, const int* lengths, int B, int KV, int S,
-              int gq, int chunk, int n_chunks, float* part, int* counters, float* out,
-              cudaStream_t st) {
-#define DECODE_LAUNCH(G, P) \
-  launch<T, DH, G, P>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, part, counters, out, st)
+              int gq, int chunk, int n_chunks, int window, float softcap, float* part,
+              int* counters, float* out, cudaStream_t st) {
+#define DECODE_LAUNCH(G, P)                                                                  \
+  launch<T, DH, G, P>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, window, softcap, part, \
+                      counters, out, st)
   switch (gq) {
     case 1: return DECODE_LAUNCH(1, false);
     case 2: return DECODE_LAUNCH(2, false);
@@ -605,19 +641,24 @@ int launch_gq(const float* q, const T* k, const T* v, const int* lengths, int B,
 
 template <typename T>
 int decode_attention(const float* q, const T* k, const T* v, const int* lengths, int B, int KV,
-                     int S, int gq, int dh, int chunk, int n_chunks, float* part,
-                     int* counters, float* out, void* stream_ptr) {
+                     int S, int gq, int dh, int chunk, int n_chunks, int window, float softcap,
+                     float* part, int* counters, float* out, void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   if (B < 1 || B > 65535 || KV < 1 || KV > 65535 || S < 1 || gq < 1 || gq > 16 ||
+      window < 1 || !(softcap >= 0.f && softcap <= 3.4e38f) ||
       (dh != 32 && dh != 64 && dh != 128 && dh != 256) ||
       chunk != chunk_positions(S, dh, (int)sizeof(T)) || n_chunks != (S + chunk - 1) / chunk ||
       n_chunks > MAX_CHUNKS)
     return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 32: return launch_gq<T, 32>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, part, counters, out, st);
-    case 64: return launch_gq<T, 64>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, part, counters, out, st);
-    case 128: return launch_gq<T, 128>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, part, counters, out, st);
-    default: return launch_gq<T, 256>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, part, counters, out, st);
+#define DECODE_DH(D)                                                                      \
+  launch_gq<T, D>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, window, softcap, part, \
+                  counters, out, st)
+    case 32: return DECODE_DH(32);
+    case 64: return DECODE_DH(64);
+    case 128: return DECODE_DH(128);
+    default: return DECODE_DH(256);
+#undef DECODE_DH
   }
 }
 
@@ -625,23 +666,24 @@ int decode_attention(const float* q, const T* k, const T* v, const int* lengths,
 
 // q (B, KV, gq, dh) f32; k/v (B, KV, S, dh), 16-byte aligned; lengths (B,)
 // i32; chunk = chunk_positions(S, dh, sizeof(elem)) and n_chunks =
-// ceil(S / chunk); part: 2 * B*KV*n_chunks*gq + B*KV*n_chunks*gq*dh f32;
+// ceil(S / chunk); window >= 1 (S or more = full attention); softcap >= 0
+// (0 = none); part: 2 * B*KV*n_chunks*gq + B*KV*n_chunks*gq*dh f32;
 // counters (B, KV) i32, zero on entry and left zero; out (B, KV, gq, dh) f32.
 // All contiguous on one device.  Launches one kernel on `stream` without
 // synchronising; returns cudaGetLastError().
 extern "C" int decode_attention_f32(const float* q, const float* k, const float* v,
                                     const int* lengths, int B, int KV, int S, int gq, int dh,
-                                    int chunk, int n_chunks, float* part, int* counters,
-                                    float* out, void* stream) {
-  return decode_attention<float>(q, k, v, lengths, B, KV, S, gq, dh, chunk, n_chunks, part,
-                                 counters, out, stream);
+                                    int chunk, int n_chunks, int window, float softcap,
+                                    float* part, int* counters, float* out, void* stream) {
+  return decode_attention<float>(q, k, v, lengths, B, KV, S, gq, dh, chunk, n_chunks, window,
+                                 softcap, part, counters, out, stream);
 }
 
 extern "C" int decode_attention_bf16(const float* q, const void* k, const void* v,
                                      const int* lengths, int B, int KV, int S, int gq, int dh,
-                                     int chunk, int n_chunks, float* part, int* counters,
-                                     float* out, void* stream) {
+                                     int chunk, int n_chunks, int window, float softcap,
+                                     float* part, int* counters, float* out, void* stream) {
   return decode_attention<__nv_bfloat16>(
       q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), lengths,
-      B, KV, S, gq, dh, chunk, n_chunks, part, counters, out, stream);
+      B, KV, S, gq, dh, chunk, n_chunks, window, softcap, part, counters, out, stream);
 }

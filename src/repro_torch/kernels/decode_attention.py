@@ -27,6 +27,13 @@ cost.  One launch per call:
   any batch; it leaves at least 17 chunks a row, enough blocks at B=1 to
   fill the card from S = 2088 on at qwen3's 8 kv heads, and no more than 64;
 * per-head state at the exact group sizes 1, 2, 4, 5, 8, 16;
+* a sliding window and a softcap (the reference's ``decode_attention_xla``
+  contract, which gemma2's decode uses) are launch arguments, not template
+  parameters: a row reads only the positions ``max(0, len - window) <= p <
+  len``, so a chunk wholly below the window exits at once as one past the
+  length does, and the arrival count and the combine span the live chunks
+  only.  The chunk size does not depend on the window, so a row is bitwise
+  the same alone or in any batch with a window too;
 * nothing allocated per call but ``out``: the workspace (partials and
   counters) is cached per (device, stream, shape) and its counters are
   zeroed once, at creation; the kernel leaves them zero.
@@ -50,6 +57,7 @@ from .ref import decode_attention_ref
 
 __all__ = [
     "WARPS", "SUPPORTED_DH", "MAX_GQ", "SOURCE", "sub_tile_rows", "chunk_positions",
+    "window_positions",
     "workspace_numel", "workspace", "build_library", "launches", "reset_launches",
     "check_contract", "decode_attention_cuda", "decode_attention_dispatch",
 ]
@@ -128,9 +136,10 @@ def workspace(device: torch.device, stream: int, b: int, kv: int, gq: int, dh: i
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.decode_attention_f32, lib.decode_attention_bf16):
-        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp, vp, vp, vp]
+        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, f32,
+                       vp, vp, vp, vp]
         fn.restype = i32
 
 
@@ -138,8 +147,14 @@ _LIB = CudaLibrary(SOURCE, _bind)
 build_library = _LIB.build     # (verbose=False) -> path of the built library
 
 
+def window_positions(window, s: int) -> int:
+    """The window as the kernel takes it: ``None`` (full attention) or a
+    window of at least S positions is S, which masks nothing."""
+    return s if window is None or window >= s else int(window)
+
+
 def check_contract(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                   length: torch.Tensor) -> None:
+                   length: torch.Tensor, window=None, attn_softcap: float = 0.0) -> None:
     """The shapes both the kernel and its plain version take; raises on any
     other.  (The plain version would compute any shape, but a caller that
     passes the CPU tests must also run on the card.)"""
@@ -159,6 +174,10 @@ def check_contract(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor
         raise ValueError(f"{gq} query heads per kv head; the kernel takes 1..{MAX_GQ}")
     if min(b, kv, s) < 1 or max(b, kv, s) >= 2**31:
         raise ValueError(f"unsupported shape B={b} KV={kv} S={s}")
+    if window is not None and (int(window) != window or window < 1):
+        raise ValueError(f"window must be None or a whole number >= 1, got {window!r}")
+    if not 0.0 <= attn_softcap < float("inf"):
+        raise ValueError(f"attn_softcap must be finite and >= 0, got {attn_softcap!r}")
 
 
 def decode_attention_cuda(
@@ -166,13 +185,15 @@ def decode_attention_cuda(
     k_cache: torch.Tensor,  # (B, KV, S, dh) f32 or bf16
     v_cache: torch.Tensor,  # (B, KV, S, dh), k_cache's type
     length: torch.Tensor,   # (B,) int32, 1 <= length[b] <= S
+    window=None,            # None = full attention
+    attn_softcap: float = 0.0,
 ) -> torch.Tensor:
     """Launch the kernel, once, on the current stream (no synchronisation);
-    returns (B, KV, GQ, dh) f32.  Positions >= ``length[b]`` are never
-    read.  Allocates ``out`` and nothing else once the workspace for this
-    shape and stream is cached."""
+    returns (B, KV, GQ, dh) f32.  Positions >= ``length[b]`` and below
+    ``length[b] - window`` are never read.  Allocates ``out`` and nothing
+    else once the workspace for this shape and stream is cached."""
     global launches
-    check_contract(q, k_cache, v_cache, length)
+    check_contract(q, k_cache, v_cache, length, window, attn_softcap)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (k_cache, v_cache, length)):
         raise ValueError("decode_attention_cuda needs all tensors on one CUDA device")
@@ -196,7 +217,8 @@ def decode_attention_cuda(
     out = torch.empty((b, kv, gq, dh), dtype=torch.float32, device=dev)
     fn = lib.decode_attention_bf16 if k_cache.dtype == torch.bfloat16 else lib.decode_attention_f32
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(),
-             b, kv, s, gq, dh, chunk, n_chunks, part.data_ptr(), counters.data_ptr(),
+             b, kv, s, gq, dh, chunk, n_chunks, window_positions(window, s), float(attn_softcap),
+             part.data_ptr(), counters.data_ptr(),
              out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
@@ -206,12 +228,13 @@ def decode_attention_cuda(
 
 def decode_attention_dispatch(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, length: torch.Tensor,
+    window=None, attn_softcap: float = 0.0,
 ) -> torch.Tensor:
     """CPU tensors -> the plain version; CUDA tensors -> the kernel.  Both
     take only the shapes :func:`check_contract` accepts."""
     if q.device.type == "cpu":
-        check_contract(q, k_cache, v_cache, length)
-        return decode_attention_ref(q, k_cache, v_cache, length)
+        check_contract(q, k_cache, v_cache, length, window, attn_softcap)
+        return decode_attention_ref(q, k_cache, v_cache, length, window, attn_softcap)
     if q.device.type == "cuda":
-        return decode_attention_cuda(q, k_cache, v_cache, length)
+        return decode_attention_cuda(q, k_cache, v_cache, length, window, attn_softcap)
     raise ValueError(f"no decode_attention for device {q.device}")

@@ -112,13 +112,15 @@ def decode_attention(
     k_cache: torch.Tensor,  # (B, KV, S, dh) f32 or bf16
     v_cache: torch.Tensor,  # (B, KV, S, dh)
     length: torch.Tensor,   # (B,) valid positions, 1 <= length[b] <= S
+    window=None,            # attend to positions >= length - window; None = all
+    attn_softcap: float = 0.0,
 ) -> torch.Tensor:
     """Flash-decode GQA attention; matches ``decode_attention_ref`` and
     returns (B, KV, GQ, dh) f32.  q is cast to f32; the caches are taken as
-    they are (f32 or bf16) and are not padded: the kernel stops at each
-    row's length and never reads the ragged tail."""
+    they are (f32 or bf16) and are not padded: the kernel reads each row's
+    positions ``length - window <= p < length`` and nothing else."""
     t0 = time.perf_counter()
     out = decode_attention_dispatch(q.to(torch.float32).contiguous(), k_cache, v_cache,
-                                    length.to(torch.int32).contiguous())
+                                    length.to(torch.int32).contiguous(), window, attn_softcap)
     record_dispatch("decode_attention", time.perf_counter() - t0)
     return out

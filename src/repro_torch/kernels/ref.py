@@ -53,17 +53,27 @@ def decode_attention_ref(
     k_cache: torch.Tensor,  # (B, KV, S, dh)
     v_cache: torch.Tensor,  # (B, KV, S, dh)
     length: torch.Tensor,   # (B,) valid KV length per sequence
+    window=None,            # None (or >= S) = full attention
+    attn_softcap: float = 0.0,
 ) -> torch.Tensor:
     """GQA decode attention over a (padded) KV cache; returns (B, KV, GQ, dh)
-    f32.  Computes in f32 whatever the cache type (bf16 is widened), as the
-    kernel does; the reference oracle computes in q's type, which the
-    wrapper makes f32."""
+    f32.  The contract of the reference's ``decode_attention_xla``: scores
+    scaled by dh**-0.5, then soft-capped (``cap * tanh(s / cap)`` when
+    ``attn_softcap > 0``), then masked to the positions ``length - window <=
+    p < length``, then softmax.  Computes in f32 whatever the cache type
+    (bf16 is widened), as the kernel does; the reference oracle computes in
+    q's type, which the wrapper makes f32."""
     strict_fp32()
     q, k, v = q.float(), k_cache.float(), v_cache.float()
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bkgd,bksd->bkgs", q, k) * scale
+    if attn_softcap > 0:
+        scores = torch.tanh(scores / attn_softcap) * attn_softcap
     pos = torch.arange(k.shape[2], device=k.device)
-    valid = pos[None, :] < length.to(k.device)[:, None]
+    length = length.to(k.device)[:, None]
+    valid = pos[None, :] < length
+    if window is not None:
+        valid &= pos[None, :] >= length - window
     scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, -BIG))
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgs,bksd->bkgd", w, v)

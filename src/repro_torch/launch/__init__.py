@@ -1,0 +1,7 @@
+"""Command-line entry points of the port.
+
+``python -m repro_torch.launch.serve`` is the port of ``repro.launch.serve``
+(LM generation and the trace-driven ANN runtime).  The reference's other
+launchers (``train``, ``dryrun``, ``mesh``, ``roofline``, ``analytics``,
+``report``) have no counterpart yet (ROADMAP Queue 1 item 13).
+"""

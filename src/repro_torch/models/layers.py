@@ -1,16 +1,21 @@
 """Shared transformer building blocks, in PyTorch.
 
-Port of ``repro/models/layers.py`` (dense parts).  Conventions as there:
+Port of ``repro/models/layers.py`` (attention, dense and MoE feed-forward).
+Conventions as there:
 
 * activations: (B, S, D); attention heads grouped GQA-style (KV, G, dh)
   with G = n_heads // n_kv_heads;
 * prefill attention runs over 128-query chunks with the softmax in fp32,
-  so the (S, S) score matrix never materialises.  It is plain PyTorch, as
-  the reference's is XLA code and not a Pallas kernel;
+  so the (S, S) score matrix never materialises, with an optional sliding
+  window and attention softcap.  It is plain PyTorch, as the reference's is
+  XLA code and not a Pallas kernel;
 * decode attention is not here: ``Model.decode_step`` calls
   :func:`repro_torch.kernels.ops.decode_attention` (the hand-written kernel
   on a card, its plain version on the CPU), the contract of the
-  reference's ``decode_attention_xla`` without a window or softcap.
+  reference's ``decode_attention_xla`` with its window and softcap;
+* the MoE feed-forward (``moe_ffn``) is the reference's sort-based
+  dispatch with per-sequence capacity, in plain PyTorch as the reference's
+  is XLA code.
 
 Weights are parameter dictionaries keyed by the reference's names.  The
 reference keeps fp32 masters and casts them to the compute type before
@@ -25,10 +30,11 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels.ref import lowest_id_topk
 
 __all__ = [
     "NEG", "CHUNK", "rms_norm", "rope", "softcap", "flash_attention",
-    "attn_init", "attn_qkv", "attn_out", "mlp_init", "mlp",
+    "attn_init", "attn_qkv", "attn_out", "mlp_init", "mlp", "moe_init", "moe_ffn",
 ]
 
 NEG = -2.0e38
@@ -67,11 +73,12 @@ def flash_attention(
     q: torch.Tensor,         # (B, Sq, KV, G, dh)
     k: torch.Tensor,         # (B, Sk, KV, dh)
     v: torch.Tensor,         # (B, Sk, KV, dh)
+    window=None,             # None = full; an int w keeps k_pos > q_pos - w
+    attn_softcap: float = 0.0,
 ) -> torch.Tensor:
     """Causal attention over query chunks of ``CHUNK``; scores per chunk are
-    (B, KV, G, CHUNK, Sk) in fp32.  Returns (B, Sq, KV, G, dh) in q's type.
-    Full attention only (no window, no softcap): the port's model refuses
-    configs that need them."""
+    (B, KV, G, CHUNK, Sk) in fp32, soft-capped before the mask as the
+    reference's.  Returns (B, Sq, KV, G, dh) in q's type."""
     sq, sk = q.shape[1], k.shape[1]
     scale = q.shape[-1] ** -0.5
     kf, vf = k.float(), v.float()
@@ -79,9 +86,12 @@ def flash_attention(
     outs = []
     for c0 in range(0, sq, CHUNK):
         qc = q[:, c0:c0 + CHUNK]
-        scores = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * scale
+        scores = softcap(torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * scale, attn_softcap)
         q_pos = c0 + torch.arange(qc.shape[1], device=q.device)
-        scores.masked_fill_(q_pos[:, None] < k_pos[None, :], NEG)
+        masked = q_pos[:, None] < k_pos[None, :]
+        if window is not None:
+            masked |= k_pos[None, :] <= q_pos[:, None] - window
+        scores.masked_fill_(masked, NEG)
         w = torch.softmax(scores, dim=-1)
         outs.append(torch.einsum("bkgqs,bskd->bqkgd", w, vf).to(q.dtype))
     return torch.cat(outs, dim=1)
@@ -136,3 +146,76 @@ def mlp(p, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
     return h @ p["w_down"].to(dt)
 
+
+
+# ----------------------------------------------------------------------
+# Mixture of Experts (sort-based dispatch with capacity)
+# ----------------------------------------------------------------------
+# Off (None) by default.  Set to a list, and each moe_ffn call appends its
+# count of dropped (token, expert) assignments as a device tensor (no host
+# sync); the measurement reads the list afterwards.
+moe_drop_log: Optional[list] = None
+
+
+def moe_init(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Optional[float]]]:
+    """The routed experts' weights (the shared expert, if any, is a
+    :func:`mlp_init` of width d_ff beside them, under ``shared``)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"router": ((d, e), d ** -0.5), "w_gate": ((e, d, f), d ** -0.5),
+            "w_up": ((e, d, f), d ** -0.5), "w_down": ((e, f, d), f ** -0.5)}
+
+
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with per-sequence capacity, as the reference's
+    ``moe_ffn``: router softmax in fp32, top k (equal probabilities in
+    ascending expert order, ``jax.lax.top_k``'s rule) renormalised; each row
+    sorts its S*K (expert, token) assignments by expert, stably, so a
+    sequence's tokens fill an expert's C = int(max(1, capacity_factor * S *
+    K / E)) slots in position order and a padded batch's pad tail is what
+    overflows; the (B, E, C, D) buffer runs through the experts' SwiGLU as
+    three batched einsums; each token sums its K weighted slots (in its
+    top-k order, without atomics).  Returns (output, Switch aux loss)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k_experts
+    dt = x.dtype
+    dev = x.device
+
+    probs = torch.softmax((x @ p["router"].to(dt)).float(), dim=-1)       # (B, S, E)
+    neg_top, topi = lowest_id_topk(-probs.reshape(b * s, e), k)
+    topv, topi = -neg_top.reshape(b, s, k), topi.reshape(b, s, k).long()
+    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+
+    # load-balance aux loss (Switch-style) over the whole batch
+    density = torch.zeros(e, device=dev).index_add_(
+        0, topi.reshape(-1), torch.ones(b * s * k, device=dev)) / (b * s * k)
+    aux = e * torch.sum(density * probs.mean((0, 1)))
+
+    cap = int(max(1, cfg.capacity_factor * s * k / e))
+    e_flat = topi.reshape(b, s * k)
+    e_sort, order = torch.sort(e_flat, dim=-1, stable=True)
+    t_sort = order // k                                                   # token of each slot
+    first = torch.searchsorted(e_sort, e_sort, side="left")
+    slot = torch.arange(s * k, device=dev) - first
+    keep = slot < cap
+    if moe_drop_log is not None:
+        moe_drop_log.append((~keep).sum())
+    slot_c = torch.clamp_max(slot, cap - 1)
+    rows = torch.arange(b, device=dev)[:, None].expand(b, s * k)
+    xs = torch.where(keep[..., None], x[rows, t_sort], torch.zeros((), dtype=dt, device=dev))
+    buf = torch.zeros((b, e, cap, d), dtype=dt, device=dev)
+    buf.index_put_((rows, e_sort, slot_c), xs, accumulate=True)
+
+    h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"].to(dt))) * \
+        torch.einsum("becd,edf->becf", buf, p["w_up"].to(dt))
+    y_buf = torch.einsum("becf,efd->becd", h, p["w_down"].to(dt))
+
+    # back in each token's own top-k order: assignment i went to sorted place inv[i]
+    inv = torch.argsort(order, dim=-1)
+    slot_of = torch.gather(slot_c, 1, inv)
+    keep_of = torch.gather(keep, 1, inv)
+    w = (topv.reshape(b, s * k) * keep_of).to(dt)
+    y = y_buf[rows, e_flat, slot_of] * w[..., None]                       # (B, S*K, D)
+    out = y.reshape(b, s, k, d).sum(2)
+    if cfg.moe_shared_expert:
+        out = out + mlp(p["shared"], x.reshape(b * s, d)).reshape(b, s, d)
+    return out, aux

@@ -1,7 +1,8 @@
-"""The serving language model, dense family, as an ``nn.Module``.
+"""The serving language model, dense and MoE families, as an ``nn.Module``.
 
-Port of ``repro/models/model.py`` for ``family="dense"`` with full
-attention (qwen3-14b):
+Port of ``repro/models/model.py`` for ``family="dense"`` and ``"moe"``
+(qwen3-14b; gemma2-2b with its alternating sliding windows and softcaps;
+olmoe-1b-7b and llama4-scout with routed, and shared, experts):
 
     model = Model(cfg, device="cuda").init(torch.Generator("cuda").manual_seed(0))
     logits, aux = model.forward({"tokens": tokens})
@@ -23,14 +24,16 @@ Differences from the reference, each giving the same numbers:
   ``decode_step`` writes the new position of each row into it in place, at
   that row's ``lengths``, and returns the same tensors; the reference
   returns a new cache.
+* The layer windows are a Python list (``_windows``), not a scanned array.
 
-Configurations that need what this slice has not ported raise
-``NotImplementedError`` at construction, never mis-serve: other families,
-MoE, attention softcap, sliding windows, the int8 KV cache.
+Configurations that need what the port has not ported raise
+``NotImplementedError`` at construction, never mis-serve: other families
+(ssm, hybrid, encdec, vlm), the ``"hymba"`` layer pattern, the int8 KV
+cache.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -45,27 +48,26 @@ from .layers import (
     flash_attention,
     mlp,
     mlp_init,
+    moe_ffn,
+    moe_init,
     rms_norm,
     softcap,
 )
 
-__all__ = ["Model", "DenseLayer", "check_supported"]
+__all__ = ["Model", "DecoderLayer", "Params", "check_supported", "GLOBAL_WINDOW"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _LATER = "ROADMAP Queue 1 item 13"
+GLOBAL_WINDOW = 2_000_000_000  # "window" value meaning full attention
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot serve yet."""
     missing = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         missing.append(f"family {cfg.family!r}")
-    if cfg.is_moe:
-        missing.append("MoE feed-forward (moe_ffn)")
-    if cfg.attn_softcap > 0:
-        missing.append("attention softcap")
-    if cfg.layer_pattern != "global" or cfg.sliding_window > 0:
-        missing.append("sliding-window attention")
+    if cfg.layer_pattern == "hymba":
+        missing.append("the 'hymba' layer pattern")
     if cfg.kv_cache_int8:
         missing.append("the int8 KV cache")
     if missing:
@@ -73,27 +75,54 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: {', '.join(missing)} not ported to repro_torch yet ({_LATER})")
 
 
-def _params(spec: Dict, device, dtype) -> nn.ParameterDict:
-    return nn.ParameterDict({
-        name: nn.Parameter(torch.zeros(shape, device=device, dtype=dtype), requires_grad=False)
-        for name, (shape, _) in spec.items()})
+def _windows(cfg: ModelConfig, n_layers: int) -> List[int]:
+    """Per-layer attention window (GLOBAL_WINDOW = full attention): gemma2's
+    ``"local_global"`` pattern puts ``sliding_window`` on the even layers; a
+    ``"global"`` pattern ignores ``sliding_window``, as the reference does."""
+    if cfg.layer_pattern == "local_global":
+        return [cfg.sliding_window if i % 2 == 0 else GLOBAL_WINDOW for i in range(n_layers)]
+    return [GLOBAL_WINDOW] * n_layers
+
+
+def _zeros(shape, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, device=device, dtype=dtype), requires_grad=False)
+
+
+class Params(nn.Module):
+    """Named weights read as ``p[name]``, like the reference's dicts; a
+    nested dict (the MoE layer's ``shared`` expert) is a submodule."""
+
+    def __init__(self, spec: Dict, device, dtype):
+        super().__init__()
+        for name, (shape, _) in spec.items():
+            self.register_parameter(name, _zeros(shape, device, dtype))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
 
 
 def _vector(d: int, device, dtype) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(d, device=device, dtype=dtype), requires_grad=False)
+    return _zeros(d, device, dtype)
 
 
-class DenseLayer(nn.Module):
+class DecoderLayer(nn.Module):
     """One decoder layer's weights: ``ln1``, ``ln2``, ``attn``, ``ffn`` (and
-    ``ln1b``/``ln2b`` with post-norms)."""
+    ``ln1b``/``ln2b`` with post-norms).  An MoE layer's ``ffn`` holds the
+    router and the experts' (E, ...) weights, and ``ffn.shared`` with a
+    shared expert."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
         d = cfg.d_model
         self.ln1 = _vector(d, device, dtype)
         self.ln2 = _vector(d, device, dtype)
-        self.attn = _params(attn_init(cfg), device, dtype)
-        self.ffn = _params(mlp_init(d, cfg.d_ff), device, dtype)
+        self.attn = Params(attn_init(cfg), device, dtype)
+        if cfg.is_moe:
+            self.ffn = Params(moe_init(cfg), device, dtype)
+            if cfg.moe_shared_expert:
+                self.ffn.shared = Params(mlp_init(d, cfg.d_ff), device, dtype)
+        else:
+            self.ffn = Params(mlp_init(d, cfg.d_ff), device, dtype)
         if cfg.post_norms:
             self.ln1b = _vector(d, device, dtype)
             self.ln2b = _vector(d, device, dtype)
@@ -115,7 +144,8 @@ class Model(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.zeros((cfg.d_model, cfg.vocab_size), device=dev, dtype=dt),
                 requires_grad=False)
-        self.layers = nn.ModuleList(DenseLayer(cfg, dev, dt) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, dev, dt) for _ in range(cfg.n_layers))
+        self.windows = _windows(cfg, cfg.n_layers)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -130,8 +160,12 @@ class Model(nn.Module):
         draws = [(self.embed, cfg.d_model ** -0.5)]
         if not cfg.tie_embeddings:
             draws.append((self.lm_head, cfg.d_model ** -0.5))
+        ffn_spec = moe_init(cfg) if cfg.is_moe else mlp_init(cfg.d_model, cfg.d_ff)
         for layer in self.layers:
-            for pd, spec in ((layer.attn, attn_init(cfg)), (layer.ffn, mlp_init(cfg.d_model, cfg.d_ff))):
+            parts = [(layer.attn, attn_init(cfg)), (layer.ffn, ffn_spec)]
+            if cfg.is_moe and cfg.moe_shared_expert:
+                parts.append((layer.ffn.shared, mlp_init(cfg.d_model, cfg.d_ff)))
+            for pd, spec in parts:
                 draws += [(pd[name], scale) for name, (_, scale) in spec.items() if scale]
         for p in self.parameters():
             p.zero_()
@@ -158,47 +192,56 @@ class Model(nn.Module):
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         return softcap((x @ head).float(), cfg.final_softcap)
 
-    def _attn_block(self, lp: DenseLayer, x: torch.Tensor, positions: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def _attn_block(self, lp: DecoderLayer, x: torch.Tensor, window: int,
+                    positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Self-attention sub-block with residual; also returns the layer's
         k and v (B, S, KV, dh) for the cache."""
         cfg = self.cfg
         h = rms_norm(x, lp.ln1, cfg.norm_eps)
         q, k, v = attn_qkv(lp.attn, h, cfg, positions)
-        o = attn_out(lp.attn, flash_attention(q, k, v), cfg)
+        o = attn_out(lp.attn, flash_attention(q, k, v, window, cfg.attn_softcap), cfg)
         if cfg.post_norms:
             o = rms_norm(o, lp.ln1b, cfg.norm_eps)
         return x + o, k, v
 
-    def _ffn_block(self, lp: DenseLayer, x: torch.Tensor) -> torch.Tensor:
+    def _ffn_block(self, lp: DecoderLayer, x: torch.Tensor, aux=0.0):
+        """Feed-forward sub-block with residual; returns (x, aux + the MoE
+        layer's load-balance loss)."""
         cfg = self.cfg
-        f = mlp(lp.ffn, rms_norm(x, lp.ln2, cfg.norm_eps))
+        h = rms_norm(x, lp.ln2, cfg.norm_eps)
+        if cfg.is_moe:
+            f, a = moe_ffn(lp.ffn, h, cfg)
+            aux = aux + a
+        else:
+            f = mlp(lp.ffn, h)
         if cfg.post_norms:
             f = rms_norm(f, lp.ln2b, cfg.norm_eps)
-        return x + f
+        return x + f, aux
 
     def _decoder_forward(self, x: torch.Tensor, positions: torch.Tensor):
-        """The decoder layers over embeddings x (B, S, D); returns (x, aux)
-        with aux = 0.0 (the dense family has no auxiliary loss)."""
-        for lp in self.layers:
-            x, _, _ = self._attn_block(lp, x, positions)
-            x = self._ffn_block(lp, x)
-        return x, 0.0
+        """The decoder layers over embeddings x (B, S, D); returns (x, aux),
+        aux the sum of the MoE layers' load-balance losses (0.0 when dense)."""
+        aux = 0.0
+        for lp, w in zip(self.layers, self.windows):
+            x, _, _ = self._attn_block(lp, x, w, positions)
+            x, aux = self._ffn_block(lp, x, aux)
+        return x, aux
 
     # ==================================================================
     # public: forward
     # ==================================================================
     @torch.no_grad()
-    def _hidden(self, batch: Dict) -> Tuple[torch.Tensor, float]:
+    def _hidden(self, batch: Dict) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
         """Final hidden states over the token positions (pre-logits)."""
         x = self._embed(self._tokens(batch["tokens"]))
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         return self._decoder_forward(x, positions)
 
     @torch.no_grad()
-    def forward(self, batch: Dict) -> Tuple[torch.Tensor, float]:
+    def forward(self, batch: Dict) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
         """Teacher-forced logits over the token positions.  Returns
-        (logits (B,S,V) fp32, aux_loss)."""
+        (logits (B,S,V) fp32, aux_loss): 0.0 for the dense family, a 0-d
+        fp32 tensor with MoE."""
         x, aux = self._hidden(batch)
         return self._logits(x), aux
 
@@ -215,7 +258,10 @@ class Model(nn.Module):
     def supports_ragged_prefill(self) -> bool:
         """Unequal-length prompt batching is exact for attention families:
         causal masking isolates each row's last real position from its pad
-        tail (the reference's flag; every family the port serves has it)."""
+        tail (the reference's flag; every family the port serves has it).
+        With MoE, as in the reference, the batch's padded length sets each
+        row's expert capacity, so a row may drop other tokens in a batch
+        than alone unless the capacity factor leaves room for all."""
         return self.cfg.family not in ("ssm", "hybrid")
 
     @staticmethod
@@ -241,11 +287,11 @@ class Model(nn.Module):
         cache = self.init_cache(b, max_len)
         x = self._embed(tokens)
         positions = torch.arange(s, device=self.device)[None, :]
-        for i, lp in enumerate(self.layers):
-            x, k, v = self._attn_block(lp, x, positions)
+        for i, (lp, w) in enumerate(zip(self.layers, self.windows)):
+            x, k, v = self._attn_block(lp, x, w, positions)
             cache["k"][i, :, :, :s] = k.transpose(1, 2)     # (B, KV, S, dh)
             cache["v"][i, :, :, :s] = v.transpose(1, 2)
-            x = self._ffn_block(lp, x)
+            x, _ = self._ffn_block(lp, x)
         if lengths is not None:
             lengths = torch.as_tensor(lengths, device=self.device)
         return self._logits(self._last_hidden(x, lengths))[:, 0], cache
@@ -265,7 +311,7 @@ class Model(nn.Module):
         rows = torch.arange(b, device=self.device)
         x = self._embed(tokens[:, None])                    # (B, 1, D)
         positions = lengths[:, None]
-        for i, lp in enumerate(self.layers):
+        for i, (lp, w) in enumerate(zip(self.layers, self.windows)):
             h = rms_norm(x, lp.ln1, cfg.norm_eps)
             q, k, v = attn_qkv(lp.attn, h, cfg, positions)
             kc, vc = cache["k"][i], cache["v"][i]           # (B, KV, S, dh) views
@@ -274,9 +320,10 @@ class Model(nn.Module):
             vc[rows, :, lengths, :] = v[:, 0]
             # f32 out of the kernel, back to the compute type as the
             # reference's decode_attention_xla returns q's type
-            o = decode_attention(q[:, 0], kc, vc, lengths + 1).to(x.dtype)
+            o = decode_attention(q[:, 0], kc, vc, lengths + 1, window=w,
+                                 attn_softcap=cfg.attn_softcap).to(x.dtype)
             o = attn_out(lp.attn, o.reshape(b, 1, kvh, g, dh), cfg)
             if cfg.post_norms:
                 o = rms_norm(o, lp.ln1b, cfg.norm_eps)
-            x = self._ffn_block(lp, x + o)
+            x, _ = self._ffn_block(lp, x + o)
         return self._logits(x)[:, 0], cache

@@ -25,7 +25,7 @@ from repro.kernels import decode_attention as jax_decode_attention
 from repro.kernels import decode_attention_ref as jax_decode_attention_ref
 from repro_torch.kernels import decode_attention, decode_attention_ref, ops
 from repro_torch.kernels.decode_attention import (WARPS, chunk_positions, sub_tile_rows,
-                                                  workspace, workspace_numel)
+                                                  window_positions, workspace, workspace_numel)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -188,31 +188,43 @@ def _merge(states):
     return m, l, acc
 
 
-def _emulate(q, k_cache, v_cache, length):
+def _emulate(q, k_cache, v_cache, length, window=None, softcap=0.0):
     """The kernel's arithmetic: chunks of ``chunk_positions`` positions;
     in each, warp w takes sub-tiles w, w + WARPS, ... of ``sub_tile_rows``
     rows with an online softmax across them; warps and then chunks are
-    combined in order.  Positions past a length are never touched."""
+    combined in order.  Positions past a length are never touched.  With a
+    window, lo = max(0, len - window): only the live chunks c_lo = lo //
+    chunk .. c_hi run and are combined, the warps of the first live chunk
+    start at the sub-tile holding lo, and its rows below lo are left out;
+    a softcap applies in natural units before the log2(e) factor."""
     elem = k_cache.element_size()
     q, k, v = q.float(), k_cache.float(), v_cache.float()
     b, kv, gq, dh = q.shape
     s = k.shape[2]
     chunk, rows = chunk_positions(s, dh, elem), sub_tile_rows(dh, elem)
+    window = window_positions(window, s)
     scale = math.log2(math.e) / math.sqrt(dh)
     out = torch.zeros((b, kv, gq, dh))
     for bi in range(b):
         n_len = min(int(length[bi]), s)
+        lo = max(0, n_len - window)
         chunks = []
-        for start in range(0, n_len, chunk):
+        for start in range(lo // chunk * chunk, n_len, chunk):
             n = min(chunk, n_len - start)
+            skip = max(lo - start, 0)
+            s_lo = skip // rows
             warps = []
             for w in range(WARPS):
                 m = torch.full((kv, gq), -math.inf)
                 l = torch.zeros((kv, gq))
                 acc = torch.zeros((kv, gq, dh))
-                for r0 in range(w * rows, n, WARPS * rows):
-                    sl = slice(start + r0, start + min(r0 + rows, n))
-                    sc = torch.einsum("kgd,krd->kgr", q[bi], k[bi, :, sl]) * scale
+                for r0 in range((s_lo + w) * rows, n, WARPS * rows):
+                    sl = slice(start + max(r0, skip), start + min(r0 + rows, n))
+                    sc = torch.einsum("kgd,krd->kgr", q[bi], k[bi, :, sl])
+                    if softcap > 0:
+                        sc = softcap * torch.tanh(sc / math.sqrt(dh) / softcap) * math.log2(math.e)
+                    else:
+                        sc = sc * scale
                     m_new = torch.maximum(m, sc.amax(-1))
                     alpha = torch.exp2(m - m_new)
                     p = torch.exp2(sc - m_new[..., None])
@@ -265,6 +277,54 @@ def test_emulated_row_alone_equals_row_in_batch():
     for r in range(4):
         alone = _emulate(qt[r:r + 1], kt[r:r + 1], vt[r:r + 1], length[r:r + 1])
         assert torch.equal(alone[0], batch[r])
+
+
+@pytest.mark.parametrize("softcap", [0.0, 50.0], ids=["nocap", "cap50"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("gq,dh", [(2, 256), (5, 128)], ids=["gemma2", "qwen3"])
+def test_kernel_decomposition_window_matches_reference(gq, dh, dtype, softcap):
+    """The live-chunk range c_lo..c_hi: windows of 101 (no multiple of a
+    sub-tile or a chunk) and of more than a chunk, lengths below and above
+    them, at gemma2's and qwen3's heads, against the plain version and the
+    JAX package's decode_attention_xla; then a row alone equals the same row
+    in the batch, bitwise."""
+    from repro.models.layers import decode_attention_xla
+
+    s = 1500
+    _, q, k, v = _inputs(33 + gq, 5, 2, gq, s, dh)
+    q = q * 10.0                      # scores of tens, so a cap of 50 bends them
+    kt, vt = torch.as_tensor(k).to(dtype), torch.as_tensor(v).to(dtype)
+    chunk = chunk_positions(s, dh, kt.element_size())
+    for window in (101, chunk + 37):
+        assert window % sub_tile_rows(dh, kt.element_size()) and window % chunk
+        length = torch.tensor([1, window - 1, window + 1, 2 * chunk + 5, s], dtype=torch.int32)
+        qt = torch.as_tensor(q)
+        emu = _emulate(qt, kt, vt, length, window, softcap)
+        plain = decode_attention_ref(qt, kt, vt, length, window, softcap)
+        ref = decode_attention_xla(jnp.asarray(q), jnp.asarray(kt.float().numpy()),
+                                   jnp.asarray(vt.float().numpy()), jnp.asarray(length.numpy()),
+                                   window=window, attn_softcap=softcap)
+        torch.testing.assert_close(emu, plain, **TOL)
+        np.testing.assert_allclose(emu.numpy(), np.asarray(ref), **TOL)
+        for r in (1, 3):
+            alone = _emulate(qt[r:r + 1], kt[r:r + 1], vt[r:r + 1], length[r:r + 1], window,
+                             softcap)
+            assert torch.equal(alone[0], emu[r])
+
+
+def test_kernel_decomposition_window_never_reads_outside():
+    """NaN below len - window and from len on leaves the emulation finite
+    and unchanged: its slices never reach them."""
+    _, q, k, v = _inputs(34, 3, 2, 5, 700, 128)
+    qt, kt, vt = map(torch.as_tensor, (q, k, v))
+    length = torch.tensor([700, 333, 90], dtype=torch.int32)
+    clean = _emulate(qt, kt, vt, length, 100)
+    kn, vn = kt.clone(), vt.clone()
+    for r, n in enumerate(length.tolist()):
+        for t in (kn, vn):
+            t[r, :, :max(0, n - 100)] = float("nan")
+            t[r, :, n:] = float("nan")
+    assert torch.equal(_emulate(qt, kn, vn, length, 100), clean)
 
 
 # ---------------------------------------------------------------------------

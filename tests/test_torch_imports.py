@@ -56,7 +56,8 @@ def test_importing_every_module_loads_no_jax_or_repro():
                 "repro_torch.fleet.admission", "repro_torch.fleet.autoscale",
                 "repro_torch.fleet.collections", "repro_torch.fleet.fairshare",
                 "repro_torch.fleet.telemetry", "repro_torch.ckpt",
-                "repro_torch.ckpt.checkpoint", "torch"):
+                "repro_torch.ckpt.checkpoint", "repro_torch.launch",
+                "repro_torch.launch.serve", "torch"):
         assert mod in loaded, mod
 
 

@@ -8,7 +8,9 @@ within each row's length, and four successive ``decode_step`` logits (the
 port's decode attention runs its kernel's plain version here).  Tolerance
 rtol = atol = 1e-4: fp32 throughout, only the order of sums differs.
 
-Configurations the slice does not serve raise ``NotImplementedError``.
+Configurations the port does not serve raise ``NotImplementedError``;
+the features served since (softcap, windows, MoE) are held to the
+reference where they used to be refused.
 """
 import dataclasses
 
@@ -144,11 +146,32 @@ def _port_cfg(ref_cfg) -> ModelConfig:
     return ModelConfig(**dataclasses.asdict(ref_cfg))
 
 
+def _forward_parity(ref_cfg, cfg, seq: int = 12):
+    """forward logits (and aux) of both packages with the reference's
+    weights carried, fp32."""
+    ref_cfg = dataclasses.replace(ref_cfg, dtype="float32")
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    ref = RefModel(ref_cfg)
+    params = ref.init(jax.random.PRNGKey(0))
+    port = carry.model_params_from_reference(cfg, jax.tree.map(np.asarray, params), device="cpu")
+    toks = _tokens(cfg, 4, (2, seq))
+    r, r_aux = ref.forward(params, {"tokens": jnp.asarray(toks)})
+    p, p_aux = port.forward({"tokens": torch.as_tensor(toks)})
+    np.testing.assert_allclose(p.numpy(), np.asarray(r), **TOL)
+    np.testing.assert_allclose(float(p_aux), float(r_aux), **TOL)
+
+
 @pytest.mark.parametrize("name", sorted(n for n, c in REF_REGISTRY.items()
                                         if c.family != "dense" or c.is_moe))
 def test_other_families_are_refused(name):
+    """Families the port does not serve (ssm, hybrid, encdec, vlm) raise;
+    the MoE family, served since the MoE port, is held to the reference."""
+    ref_cfg = REF_REGISTRY[name].reduced()
+    if ref_cfg.family == "moe":
+        _forward_parity(ref_cfg, get_config(name).reduced())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(_port_cfg(REF_REGISTRY[name].reduced()), device="cpu")
+        Model(_port_cfg(ref_cfg), device="cpu")
 
 
 @pytest.mark.parametrize("change", [
@@ -157,12 +180,20 @@ def test_other_families_are_refused(name):
     dict(sliding_window=64),
     dict(kv_cache_int8=True),
     dict(n_experts=4, top_k_experts=2),
+    dict(layer_pattern="hymba", sliding_window=8, global_layers=(0,)),
 ])
 def test_unported_features_are_refused(change):
+    """The int8 KV cache and the hymba layer pattern raise; the softcap, the
+    windows (a "global" pattern ignores sliding_window) and MoE, served
+    since their port, are held to the reference on qwen3's reduced shapes
+    (a window of 64 bites at 80 tokens)."""
     cfg = dataclasses.replace(get_config("qwen3-14b").reduced(), **change)
-    with pytest.raises(NotImplementedError):
-        Model(cfg, device="cpu")
-    assert ref_get_config("gemma2-2b").attn_softcap > 0      # what waits for the window port
+    if change.get("kv_cache_int8") or change.get("layer_pattern") == "hymba":
+        with pytest.raises(NotImplementedError):
+            Model(cfg, device="cpu")
+        return
+    _forward_parity(dataclasses.replace(ref_get_config("qwen3-14b").reduced(), **change), cfg,
+                    seq=80)
 
 
 def test_cuda_default_raises_without_a_card():
