@@ -5,7 +5,9 @@
 Phases, each printed as it runs:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. the build of every hand-written kernel from the sources in this
-     checkout (one nvcc per source, started together);
+     checkout (one nvcc per library, all started together: the masked top-k,
+     the decode kernel for f32/bf16 caches, and for int8 caches), with its
+     seconds;
   3. the masked L2 top-k against its plain PyTorch version on the card at
      the ANN path's shapes (B from 1 to 256), with its path (streaming or
      tiled), query tile and splits, its time, the plain version's, the
@@ -26,6 +28,17 @@ Phases, each printed as it runs:
      other windows on one cached workspace all give the clean results
      bitwise; kernel, plain and SDPA (window as a boolean mask; none with a
      softcap) times beside the bound of min(len, window) positions a row;
+  3d. the decode kernel's int8 K/V (f32 scales per position and head,
+     dequantized to bf16 and to f32) against the plain version at qwen3's
+     serving shape (B 8, KV 8, GQ 5, S 2088, dh 128), gemma2's windowed one
+     (KV 4, GQ 2, dh 256, S 8192, window 4096, softcap 0 and 50) and
+     hymba's (KV 5, GQ 5, dh 64, S 2088, window 1024 and full), ragged
+     lengths with window starts off a multiple of 4; NaN scales and garbage
+     int8 outside each row's window never reach the output, repeated calls
+     and rows alone equal the batch bitwise; the int8 kernel's device ms
+     beside the bf16 kernel's at the same shape, the plain version's,
+     dequantize_kv + SDPA's (two calls) and the bound of dh + 4 bytes a
+     position, head and tensor;
   4. the filtered-ANN main path through its public entry points on the
      arxiv dataset at the paper's full size (2.14M x 384): build -> fit ->
      query / batch_query -> ground_truth; then 256 queries under one shared
@@ -115,6 +128,20 @@ Phases, each printed as it runs:
      factor 1.25) with prompts of 256-2048 tokens: launches equal 16 x steps,
      the (token, expert) assignments dropped per prefill batch, the decode
      step beside the bound of every expert's weights and of 8 active ones;
+  6d. hymba-1.5b (32 layers of attention beside a Mamba head, a 1,024
+     window but on layers 0, 15 and 31) at full width and depth in bf16:
+     16 requests in two batches of 8 equal-length prompts (1,536 and 2,048
+     tokens), 32 new tokens, 8 slots, max_len 2088; launches equal 32 x
+     steps, the kernel against its plain version on a local and a global
+     layer; the step beside its bound (weights, K/V, the Mamba state);
+  6e. xlstm-1.3b (48 blocks: 6 groups of 1 sLSTM + 7 mLSTM) likewise, with
+     6d's traffic: no decode_attention launch; the bound counts the mLSTM
+     state read and written (1.41 GB each way at 8 slots);
+  6f. gemma2-2b with the int8 KV cache on 6b's first 8 requests, 16 new
+     tokens: launches equal 26 x steps, the kernel against its plain
+     version on a local and a global layer of the int8 cache; the step, the
+     kernel's ms per step and the cache's GB beside 6b's, and the share of
+     tokens equal to 6b's (not gated);
   7. RAG: RetrievalAugmentedServer over the phase-6 model and the phase-4
      engine; every id passes its predicate, exact plans equal ground truth;
   8. fp32 exactness at full width and depth 4: batch tokens equal solo
@@ -123,21 +150,27 @@ Phases, each printed as it runs:
   8b. the same for gemma2-2b (prompts of 4,100-4,600 tokens, past its
      window) and olmoe-1b-7b at capacity factor 8 (the reference's
      reduced() choice: no token drops);
+  8c. the same for hymba-1.5b at depth 4 (layer 0 global, three 1,024
+     windows) on 4 prompts of 1,100 tokens and xlstm-1.3b at depth 8 (one
+     group) on 4 of 600 (no multiple of the 256-step chunk), equal-length
+     batches; qwen3-14b at depth 4 with the int8 cache, batch = solo only
+     (teacher forcing never reads the quantised cache);
   9. the serve CLI in-process (repro_torch.launch.serve.main): ann-trace
      over 200,000 rows with 4 shards and the recall probe (the snapshot has
      the reference CLI's keys, masked_l2_topk launched), then --mode lm for
-     gemma2-2b and olmoe-1b-7b (every request its tokens);
+     gemma2-2b, olmoe-1b-7b, hymba-1.5b and xlstm-1.3b (every request its
+     tokens);
   5. one JSON line listing every kernel, then the card line, then the
      result line {"ok": true, "device": {...}}.
 
 Each path's kernel launch counts are set to 0 just before it and read
-just after it (phases 4, 4b, 4c, 4d, 4e, 6, 6b, 6c, 7, 9; 4c's routed serving, its
+just after it (phases 4, 4b, 4c, 4d, 4e, 6, 6b-6f, 7, 9; 4c's routed serving, its
 spanning-head serving and its live serving each; 4d and 4e each as a
 whole, ground truth and rebuilds included, and their serving runs alone:
 in 4e the runtime's own batch_query calls, never the checks of them);
 masked_l2_topk's launches in the kernels line are the sum over phases 4,
-4b, 4c, 4d and 4e (serving runs), decode_attention's over phases 6, 6b
-and 6c.  Any failed check raises, so the script
+4b, 4c, 4d and 4e (serving runs), decode_attention's over phases 6 and
+6b-6f (int8 calls included).  Any failed check raises, so the script
 exits non-zero and prints no result.  It needs a CUDA card and the repo's
 ``src/`` beside it, and imports nothing of the JAX package.
 """
@@ -258,9 +291,10 @@ def same_up_to_ties(q, ids_a, d_a, ids_b, d_b) -> bool:
 # ----------------------------------------------------------------------
 def build_kernels() -> dict:
     from repro_torch.kernels import masked_l2
-    from repro_torch.kernels.decode_attention import build_library as decode_build
+    from repro_torch.kernels.decode_attention import build_int8_library, build_library
 
-    builders = {"masked_l2_topk": masked_l2.build_library, "decode_attention": decode_build}
+    builders = {"masked_l2_topk": masked_l2.build_library, "decode_attention": build_library,
+                "decode_attention (int8)": build_int8_library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:
         futs = {name: pool.submit(fn) for name, fn in builders.items()}
@@ -268,7 +302,7 @@ def build_kernels() -> dict:
     secs = time.perf_counter() - t0
     for name, lib in libs.items():
         print(f"[build] {name}: {lib.relative_to(ROOT)}")
-    print(f"[build] {len(libs)} kernel(s) built in {secs:.2f} s", flush=True)
+    print(f"[build] {len(libs)} libraries of 2 kernels built in {secs:.2f} s", flush=True)
     return libs
 
 
@@ -1892,14 +1926,15 @@ def runtime_phase(mp: dict, k: int = 10) -> dict:
 # ----------------------------------------------------------------------
 # phase 3b: the decode attention kernel against its plain version
 # ----------------------------------------------------------------------
-def decode_bound(lengths, s: int, kv: int, gq: int, dh: int, elem: int):
+def decode_bound(lengths, s: int, kv: int, gq: int, dh: int, elem: int, scale_bytes: int = 0):
     """(ms, "bytes" or "operations"): the least time for one call.  Each K/V
-    byte below a row's length is read once, q read and out written once;
-    4 flops (q.k and p.v) per K/V element per query head, on the fp32 CUDA
-    cores the kernel uses."""
+    byte below a row's length is read once (with int8, ``scale_bytes`` = 4
+    more a position, head and tensor: its scale), q read and out written
+    once; 4 flops (q.k and p.v) per K/V element per query head, on the fp32
+    CUDA cores the kernel uses."""
     pos = sum(min(int(n), s) for n in lengths)
     b = len(lengths)
-    bytes_ = pos * kv * dh * 2 * elem + 2 * b * kv * gq * dh * 4 + 4 * b
+    bytes_ = pos * kv * (dh * elem + scale_bytes) * 2 + 2 * b * kv * gq * dh * 4 + 4 * b
     flops = 4 * pos * kv * gq * dh
     tb, tf = bytes_ / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
@@ -2160,34 +2195,236 @@ def window_timing(q, k, v, length, lengths, window, cap, kv, gq, dh, tag, err) -
 
 
 # ----------------------------------------------------------------------
+# phase 3d: the decode kernel's int8 K/V
+# ----------------------------------------------------------------------
+# (name, KV, GQ, dh, S, windows, softcaps): qwen3-14b's serving shape,
+# gemma2-2b's windowed one, hymba-1.5b's (a 1,024 window on 29 of its 32 layers)
+INT8_SHAPES = (("qwen3", 8, 5, 128, 2088, (None,), (0.0,)),
+               ("gemma2", 4, 2, 256, WINDOW_S, (4096,), (0.0, 50.0)),
+               ("hymba", 5, 5, 64, 2088, (1024, None), (0.0,)))
+
+
+def dequant_sdpa_call(q, k, v, ks, vs, length, window, dt):
+    """The library yardstick for int8, timed here and used nowhere in the
+    port: two PyTorch calls, the reference's int8 decode's own order --
+    dequantize_kv of the whole cache (to the model's type), then one
+    scaled_dot_product_attention with the length (and window) mask."""
+    from repro_torch.models.layers import dequantize_kv
+
+    kd, vd = dequantize_kv(k, ks).to(dt), dequantize_kv(v, vs).to(dt)
+    if window is None:
+        return sdpa_call(q, kd, vd, length)
+    return sdpa_window_call(q, kd, vd, length, window)
+
+
+def decode_int8_checks() -> dict:
+    """The kernel's int8 K/V (with f32 scales) against its plain version at
+    qwen3's, gemma2's and hymba's heads, B = 8, ragged lengths (a window
+    start that is no multiple of 4 among them), dequantized to bf16 and to
+    f32: within the band of phase 3b; NaN scales and garbage int8 outside
+    each row's window never reach the output; a row alone equals the row
+    in the batch and a repeated call the first, bitwise.  Device ms of the
+    int8 kernel (bf16 dequant) beside the bf16 kernel's at the same shape,
+    the plain version's, dequantize + SDPA's and the bound of (dh + 4)
+    bytes a position, head and tensor."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.decode_attention import (chunk_positions, decode_attention_cuda,
+                                                      tile_elem)
+    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.models.layers import quantize_kv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    rng = np.random.default_rng(5)
+    rows, max_err, n_cases = {}, 0.0, 0
+    t0 = time.perf_counter()
+    for name, kv, gq, dh, s, windows, caps in INT8_SHAPES:
+        b = 8
+        chunk = chunk_positions(s, dh, tile_elem(torch.int8))
+        q = 8.0 * torch.randn((b, kv, gq, dh), generator=g, device=dev)
+        k32 = torch.randn((b, kv, s, dh), generator=g, device=dev)
+        v32 = torch.randn((b, kv, s, dh), generator=g, device=dev)
+        (k, ks), (v, vs) = quantize_kv(k32), quantize_kv(v32)
+        kb, vb = k32.to(torch.bfloat16), v32.to(torch.bfloat16)
+        del k32, v32
+        for window in windows:
+            if window is None:
+                lengths = ragged_lengths(b, s, rng, chunk)
+            else:
+                lengths = window_lengths(b, s, window, chunk)
+                check(any((n - window) % 4 for n in lengths if n > window),
+                      f"int8 {name}: no window start off a multiple of 4")
+            length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            for cap in caps:
+                for dq in (torch.bfloat16, torch.float32):
+                    args = (q, k, v, length, window, cap, ks, vs, dq)
+                    tag = (f"int8 {name} B={b} KV={kv} GQ={gq} S={s} dh={dh} window {window} "
+                           f"softcap {cap:g} dequant {str(dq)[6:]} (chunk {chunk})")
+                    out = decode_attention_cuda(*args)
+                    torch.cuda.synchronize()
+                    ref = decode_attention_ref(*args)
+                    err = float((out - ref).abs().max())
+                    check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
+                          f"decode_attention {tag}: err {err}")
+                    max_err = max(max_err, err)
+                    n_cases += 1
+                    check(torch.equal(decode_attention_cuda(*args), out),
+                          f"decode_attention {tag}: a repeated call differs")
+                    for r in (0, 2, 5):
+                        solo = decode_attention_cuda(
+                            q[r:r + 1].contiguous(), k[r:r + 1], v[r:r + 1], length[r:r + 1],
+                            window, cap, ks[r:r + 1], vs[r:r + 1], dq)
+                        check(torch.equal(solo[0], out[r]),
+                              f"decode_attention {tag}: row {r} alone differs from the batch")
+                    if dq == torch.float32:
+                        continue
+                    # outside each row's window: NaN scales, garbage int8
+                    kn, vn, ksn, vsn = k.clone(), v.clone(), ks.clone(), vs.clone()
+                    for r, n in enumerate(lengths):
+                        lo = max(0, n - (window or s))
+                        for t in (ksn, vsn):
+                            t[r, :, :lo] = float("nan")
+                            t[r, :, n:] = float("nan")
+                        for t in (kn, vn):
+                            t[r, :, :lo] = 127
+                            t[r, :, n:] = -127
+                    again = decode_attention_cuda(q, kn, vn, length, window, cap, ksn, vsn, dq)
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(again).all()) and torch.equal(again, out),
+                          f"decode_attention {tag} read a position or scale outside a row's window")
+                    del kn, vn, ksn, vsn
+                    rows[(name, window, cap)] = int8_timing(
+                        q, k, v, ks, vs, kb, vb, length, lengths, window, cap, kv, gq, dh, tag,
+                        err)
+        del q, k, v, ks, vs, kb, vb
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"[int8] {n_cases} cases within rtol=atol=2e-4 of the plain version (max_abs_err "
+          f"{max_err:.3g}); repeated calls and rows alone equal (bitwise); NaN scales and garbage "
+          f"int8 outside each row's window never reach the output; phase 3d took {secs:.1f} s",
+          flush=True)
+    return {"rows": rows, "max_abs_err": max_err, "seconds": secs}
+
+
+def int8_timing(q, k, v, ks, vs, kb, vb, length, lengths, window, cap, kv, gq, dh, tag,
+                err) -> dict:
+    """The int8 kernel (bf16 dequant), the bf16 kernel on the same values in
+    bf16, the plain version and (without a softcap) dequantize + SDPA:
+    CUDA-event ms and profiler device ms; the bound counts (dh + 4) bytes
+    of K and of V per position below min(len, window) and kv head."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    bf = torch.bfloat16
+    fns = {"kernel": lambda: decode_attention_cuda(q, k, v, length, window, cap, ks, vs, bf),
+           "bf16": lambda: decode_attention_cuda(q, kb, vb, length, window, cap),
+           "plain": lambda: decode_attention_ref(q, k, v, length, window, cap, ks, vs, bf)}
+    if cap == 0:
+        fns["library"] = lambda: dequant_sdpa_call(q, k, v, ks, vs, length, window, bf)
+    wall, on_card, _ = time_decode_calls(fns, 10, tag)
+    s = k.shape[2]
+    live = [min(int(n), window or s) for n in lengths]
+    bound, by = decode_bound(live, s, kv, gq, dh, 1, scale_bytes=4)
+    bound16, _ = decode_bound(live, s, kv, gq, dh, 2)
+    lib = wall.get("library")
+    print(f"[int8] {tag} positions read {sum(live)}: int8 kernel {wall['kernel']:.4f} ms (device "
+          f"{on_card['kernel']:.4f}), bf16 kernel {wall['bf16']:.4f} ({on_card['bf16']:.4f}), "
+          f"plain {wall['plain']:.4f} ({on_card['plain']:.4f}), dequantize_kv + sdpa (two calls) "
+          + (f"{lib:.4f} ({on_card['library']:.4f})" if lib else "none (no PyTorch call applies "
+             "a softcap)") +
+          f"; bound {bound:.6g} ms ({by}; bf16's {bound16:.6g}); int8 device / bound "
+          f"{on_card['kernel'] / bound:.3f}, int8 / bf16 device "
+          f"{on_card['kernel'] / on_card['bf16']:.3f}; max_abs_err {err:.3g}", flush=True)
+    return dict(ms=wall["kernel"], plain_ms=wall["plain"], library_ms=lib,
+                device_ms=on_card["kernel"], plain_device_ms=on_card["plain"],
+                library_device_ms=on_card.get("library"), bf16_ms=wall["bf16"],
+                bf16_device_ms=on_card["bf16"], bound_ms=bound, bound_by=by,
+                bf16_bound_ms=bound16, max_abs_err=err, lengths=lengths, positions=sum(live))
+
+
+# ----------------------------------------------------------------------
 # phases 6, 6b, 6c: LM serving at full width and depth
 # ----------------------------------------------------------------------
 GEMMA = "gemma2-2b"
 OLMOE = "olmoe-1b-7b"
+HYMBA = "hymba-1.5b"
+XLSTM = "xlstm-1.3b"
+# phases 6d and 6e: two batches of 8 equal-length prompts (a recurrent
+# family is served equal-length), the second past hymba's 1,024 window
+RECURRENT_PROMPTS = [1536] * 8 + [2048] * 8
+
+
+def state_bytes(cfg, b: int) -> int:
+    """Bytes of a batch of b rows' recurrent decode state (fp32): a hybrid
+    model's Mamba h and conv prefix per layer; an xLSTM's sLSTM c, n, h, m
+    per group and mLSTM C, n, m per mLSTM block."""
+    if cfg.family == "hybrid":
+        return 4 * cfg.n_layers * b * cfg.d_model * (cfg.ssm_state + cfg.ssm_conv - 1)
+    if cfg.family == "ssm":
+        g = cfg.n_layers // cfg.slstm_every
+        h, dh = cfg.n_heads, cfg.dh
+        return 4 * b * h * (g * 4 * dh + g * (cfg.slstm_every - 1) * (dh * dh + dh + 1))
+    return 0
 
 
 def decode_step_bounds(model, step_lengths) -> dict:
     """The least time of one decode step, in ms at 3.35 TB/s, for a step
     whose rows attend to ``step_lengths`` positions: every weight the step
     reads once (the embedding only as a tied head; a gathered row is
-    nothing) plus each layer's K/V below min(length, window) a row.  For
-    MoE, ``weights`` counts every expert (what the dense (B, E, C, D)
-    dispatch reads) and ``active`` only the top-k experts of one token."""
+    nothing) plus each layer's K/V below min(length, window) a row (int8:
+    dh + 4 bytes a position, head and tensor) plus a recurrent model's
+    state, read and written once.  For MoE, ``weights`` counts every expert
+    (what the dense (B, E, C, D) dispatch reads) and ``active`` only the
+    top-k experts of one token."""
     cfg = model.cfg
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     elem = model.embed.element_size()
     read = w_bytes - (0 if cfg.tie_embeddings else model.embed.numel() * elem)
+    per_pos = cfg.dh + 4 if cfg.kv_cache_int8 else cfg.dh * elem
     kv = sum(min(int(n), w) for w in model.windows for n in step_lengths) * \
-        cfg.n_kv_heads * cfg.dh * 2 * elem
-    out = {"weights": 1e3 * (read + kv) / H100_BYTES_PER_S, "kv_bytes": kv, "read_bytes": read}
+        cfg.n_kv_heads * per_pos * 2
+    state = 2 * state_bytes(cfg, len(step_lengths))
+    out = {"weights": 1e3 * (read + kv + state) / H100_BYTES_PER_S, "kv_bytes": kv,
+           "read_bytes": read, "state_bytes": state}
     if cfg.is_moe:
         idle = cfg.n_layers * (cfg.n_experts - cfg.top_k_experts) * 3 * cfg.d_model * cfg.d_ff
         out["active"] = 1e3 * (read - idle * elem + kv) / H100_BYTES_PER_S
     return out
 
 
+def cache_bytes(cfg, slots: int, max_len: int, elem: int) -> int:
+    """The KV cache's bytes (int8: plus its fp32 scales)."""
+    if cfg.family == "ssm":
+        return 0
+    n = 2 * cfg.n_layers * slots * cfg.n_kv_heads * max_len
+    return n * cfg.dh + 4 * n if cfg.kv_cache_int8 else n * cfg.dh * elem
+
+
+def probe_layers(model) -> list:
+    """The layers the kernel is held to its plain version on: the first
+    with a window and the first with full attention (one of them if all
+    layers are alike)."""
+    from repro_torch.models.model import GLOBAL_WINDOW
+
+    ws = model.windows
+    local = [i for i, w in enumerate(ws) if w < GLOBAL_WINDOW]
+    full = [i for i, w in enumerate(ws) if w >= GLOBAL_WINDOW]
+    return sorted({*local[:1], *full[:1]}) if local and full else [0, len(ws) - 1]
+
+
 def lm_serving(arch: str = QWEN, plens=(256, 2048), n_requests: int = 16, slots: int = 8,
-               new: int = 32, max_len: int = 2088, tag: str = "lm", n_layers=None) -> dict:
+               new: int = 32, max_len: int = 2088, tag: str = "lm", n_layers=None,
+               prompt_lens=None, n_serve=None, teacher_forced: bool = True,
+               idle_steps: int = 8, **overrides) -> dict:
+    """One architecture through ServeEngine at full width: prompts of
+    ``prompt_lens`` tokens (one per request) or uniform on ``plens``
+    (seeded), the first ``n_serve`` of them served (all by default), and
+    ``idle_steps`` decode steps profiled for the idle share.  ``overrides``
+    replace config fields (``kv_cache_int8=True``)."""
     import numpy as np
     import torch
 
@@ -2199,26 +2436,33 @@ def lm_serving(arch: str = QWEN, plens=(256, 2048), n_requests: int = 16, slots:
     from repro_torch.models.layers import attn_qkv, rms_norm
     from repro_torch.serve import Request, ServeEngine
 
+    t_phase = time.perf_counter()
     cfg = get_config(arch)
     if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        overrides["n_layers"] = n_layers
+    cfg = dataclasses.replace(cfg, **overrides)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    kv_cache = 2 * cfg.n_layers * slots * cfg.n_kv_heads * max_len * cfg.dh * \
-        model.embed.element_size()
+    kv_cache = cache_bytes(cfg, slots, max_len, model.embed.element_size())
+    state = state_bytes(cfg, slots)
     print(f"[{tag}] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
-          f"{cfg.dtype}; {w_bytes / 1e9:.3f} GB of weights initialised on the card in "
-          f"{init_s:.2f} s; KV cache {kv_cache / 1e9:.3f} GB ({slots} slots x {max_len})",
-          flush=True)
+          f"{cfg.dtype}{', int8 KV cache' if cfg.kv_cache_int8 else ''}; {w_bytes / 1e9:.3f} GB of "
+          f"weights initialised on the card in {init_s:.2f} s; KV cache {kv_cache / 1e9:.3f} GB "
+          f"({slots} slots x {max_len}); recurrent state {state / 1e9:.3f} GB", flush=True)
 
     rng = np.random.default_rng(0)
-    plens = rng.integers(plens[0], plens[1] + 1, n_requests)
+    if prompt_lens is None:
+        prompt_lens = rng.integers(plens[0], plens[1] + 1, n_requests)
+    prompt_lens = np.asarray(prompt_lens)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
-                    max_new_tokens=new) for i, n in enumerate(plens)]
+                    max_new_tokens=new) for i, n in enumerate(prompt_lens)]
+    reqs = reqs[:n_serve]
+    plens = prompt_lens[:len(reqs)]
+    n_requests = len(reqs)
     eng = ServeEngine(model, batch_slots=slots, max_len=max_len)
     prefill, decode = eng._prefill, eng._decode
     prefill_s, step_ms, step_lengths, last, dropped = [], [], [], {}, []
@@ -2257,9 +2501,10 @@ def lm_serving(arch: str = QWEN, plens=(256, 2048), n_requests: int = 16, slots:
     serve_s = time.perf_counter() - t0
     launches = ops.kernel_launches()
     n_steps = len(step_ms)
-    check(launches["decode_attention"] == cfg.n_layers * n_steps,
+    n_attn = len(model.windows)          # attention layers: 0 in an xLSTM
+    check(launches["decode_attention"] == n_attn * n_steps,
           f"{arch}: decode_attention launched {launches['decode_attention']} times over "
-          f"{n_steps} decode steps of {cfg.n_layers} layers")
+          f"{n_steps} decode steps of {n_attn} attention layers")
     check(all(len(results[r.uid]) == new and all(0 <= t < cfg.vocab_size for t in results[r.uid])
               for r in reqs), f"{arch}: a request came back without its tokens")
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2283,74 +2528,89 @@ def lm_serving(arch: str = QWEN, plens=(256, 2048), n_requests: int = 16, slots:
     print(f"[{tag}] decode: {n_steps} steps, median {med:.3f} ms/step (p90 "
           f"{np.percentile(step_ms, 90):.3f}), {slots / med * 1e3:.1f} tokens/s in decode; bound "
           f"{bound:.3f} ms/step (weights read {bounds['read_bytes'] / 1e9:.3f} GB + KV "
-          f"{bounds['kv_bytes'] / 1e9:.3f} GB at 3.35 TB/s), step / bound {med / bound:.3f}"
+          f"{bounds['kv_bytes'] / 1e9:.3f} GB + state read and written "
+          f"{bounds['state_bytes'] / 1e9:.3f} GB at 3.35 TB/s), step / bound {med / bound:.3f}"
           + extra, flush=True)
-    print(f"[{tag}] decode_attention launches {launches['decode_attention']} = {cfg.n_layers} x "
+    print(f"[{tag}] decode_attention launches {launches['decode_attention']} = {n_attn} x "
           f"{n_steps} steps; peak memory {peak:.2f} GB", flush=True)
 
-    # the kernel against its plain version on the model's own cache, at the
-    # first and the last layer (gemma2: a local and a global one), and its
-    # device time per call there
+    # the kernel against its plain version on the model's own cache, at a
+    # local and a global layer, and its device time per call there
     cache, lens, toks = last["cache"], last["lens"], last["tokens"]
-    rows = torch.arange(toks.shape[0], device=toks.device)
-    x = model._embed(toks[rows, lens.long() - 1][:, None])
-    cache_err, layer_ms = 0.0, {}
-    for layer in (0, cfg.n_layers - 1):
-        lp, w = model.layers[layer], model.windows[layer]
-        q = attn_qkv(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, lens.long()[:, None])[0]
-        q = q[:, 0].float().contiguous()
-        kc, vc = cache["k"][layer], cache["v"][layer]
-        length = lens.to(torch.int32)
-        out = decode_attention_cuda(q, kc, vc, length, w, cfg.attn_softcap)
-        ref = decode_attention_ref(q, kc, vc, lens, w, cfg.attn_softcap)
-        err = float((out - ref).abs().max())
-        check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
-              f"{arch}: decode_attention on the model's cache, layer {layer}: err {err}")
-        cache_err = max(cache_err, err)
-        layer_ms[layer] = device_ms(
-            lambda: decode_attention_cuda(q, kc, vc, length, w, cfg.attn_softcap), 10, expect=1)[0]
-    n_local = sum(w < max_len for w in model.windows)
-    lo_ms, hi_ms = layer_ms[0], layer_ms[cfg.n_layers - 1]
-    if 0 < n_local < cfg.n_layers:      # layer 0 local, the last layer global
-        per_step = (f"{n_local} local x {lo_ms:.4f} + {cfg.n_layers - n_local} global x "
-                    f"{hi_ms:.4f} = {n_local * lo_ms + (cfg.n_layers - n_local) * hi_ms:.4f} ms; "
-                    f"local / global {lo_ms / hi_ms:.3f} against window / mean length "
-                    f"{cfg.sliding_window / float(lens.float().mean()):.3f}")
-    else:
-        per_step = f"{cfg.n_layers} x {(lo_ms + hi_ms) / 2:.4f} ms"
-    print(f"[{tag}] kernel vs plain on the model's cache after prefill (layers 0 and "
-          f"{cfg.n_layers - 1}, lengths {lens.tolist()}): max_abs_err {cache_err:.3g}; device "
-          f"ms per call {lo_ms:.4f} (layer 0) and {hi_ms:.4f} (layer {cfg.n_layers - 1}); "
-          f"per step about {per_step}", flush=True)
+    cache_err, layer_ms, per_step_ms = 0.0, {}, None
+    if n_attn:
+        rows = torch.arange(toks.shape[0], device=toks.device)
+        x = model._embed(toks[rows, lens.long() - 1][:, None])
+        for layer in probe_layers(model):
+            lp, w = model.layers[layer], model.windows[layer]
+            q = attn_qkv(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, lens.long()[:, None])[0]
+            q = q[:, 0].float().contiguous()
+            kc, vc = cache["k"][layer], cache["v"][layer]
+            sc = ((cache["k_scale"][layer], cache["v_scale"][layer], model.dtype)
+                  if cfg.kv_cache_int8 else ())
+            length = lens.to(torch.int32)
+            out = decode_attention_cuda(q, kc, vc, length, w, cfg.attn_softcap, *sc)
+            ref = decode_attention_ref(q, kc, vc, lens, w, cfg.attn_softcap, *sc)
+            err = float((out - ref).abs().max())
+            check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
+                  f"{arch}: decode_attention on the model's cache, layer {layer}: err {err}")
+            cache_err = max(cache_err, err)
+            layer_ms[layer] = device_ms(
+                lambda: decode_attention_cuda(q, kc, vc, length, w, cfg.attn_softcap, *sc), 10,
+                expect=1)[0]
+        n_local = sum(w < max_len for w in model.windows)
+        if len(layer_ms) == 2 and 0 < n_local < n_attn:
+            lo_l = min(layer_ms, key=lambda i: model.windows[i])
+            hi_l = max(layer_ms, key=lambda i: model.windows[i])
+            lo_ms, hi_ms = layer_ms[lo_l], layer_ms[hi_l]
+            per_step_ms = n_local * lo_ms + (n_attn - n_local) * hi_ms
+            per_step = (f"{n_local} local x {lo_ms:.4f} (layer {lo_l}) + {n_attn - n_local} global "
+                        f"x {hi_ms:.4f} (layer {hi_l}) = {per_step_ms:.4f} ms; local / global "
+                        f"{lo_ms / hi_ms:.3f} against window / mean length "
+                        f"{cfg.sliding_window / float(lens.float().mean()):.3f}")
+        else:
+            per_step_ms = n_attn * sum(layer_ms.values()) / len(layer_ms)
+            per_step = f"{n_attn} x {per_step_ms / n_attn:.4f} = {per_step_ms:.4f} ms"
+        print(f"[{tag}] kernel vs plain on the model's cache after prefill (layers "
+              f"{sorted(layer_ms)}, lengths {lens.tolist()}): max_abs_err {cache_err:.3g}; device "
+              f"ms per call " + ", ".join(f"{v:.4f} (layer {k})" for k, v in layer_ms.items()) +
+              f"; per step about {per_step}", flush=True)
     last.clear()
     del cache
 
-    agree = 0
-    for r in reqs:
-        out = np.asarray(results[r.uid])
-        seq = np.concatenate([r.prompt, out[:-1].astype(np.int32)])
-        h, _ = model._hidden({"tokens": seq[None]})
-        # logits only from the last prompt position on (a whole 8,000-token
-        # row of 256,000 fp32 logits would be 8.2 GB)
-        tf = model._logits(h[:, len(r.prompt) - 1:])[0].argmax(-1).cpu().numpy()
-        agree += int((tf == out).sum())
-        del h
-    print(f"[{tag}] served tokens equal to the teacher-forced argmax: {agree}/{n_tok} = "
-          f"{agree / n_tok:.4f} (bf16, not gated: prefill and decode round at other places)",
-          flush=True)
-    idle, attn_ms = decode_idle_share(model, reqs[:slots], max_len, med, tag=tag)
+    agree = None
+    if teacher_forced:
+        agree = 0
+        for r in reqs:
+            out = np.asarray(results[r.uid])
+            seq = np.concatenate([r.prompt, out[:-1].astype(np.int32)])
+            h, _ = model._hidden({"tokens": seq[None]})
+            # logits only from the last prompt position on (a whole 8,000-token
+            # row of 256,000 fp32 logits would be 8.2 GB)
+            tf = model._logits(h[:, len(r.prompt) - 1:])[0].argmax(-1).cpu().numpy()
+            agree += int((tf == out).sum())
+            del h
+        agree /= n_tok
+        print(f"[{tag}] served tokens equal to the teacher-forced argmax: {agree:.4f} of {n_tok} "
+              f"(bf16, not gated: prefill and decode round at other places)", flush=True)
+    idle, attn_ms, kernels = decode_idle_share(model, reqs[:slots], max_len, med, n=idle_steps,
+                                               tag=tag)
+    secs = time.perf_counter() - t_phase
+    print(f"[{tag}] phase took {secs:.1f} s", flush=True)
     return {"model": model, "launches": launches, "step_ms": med, "bound_ms": bound,
             "bounds": bounds, "attention_ms_per_step": attn_ms, "layer_ms": layer_ms,
-            "tokens_per_s": n_tok / serve_s, "prefill_s": prefill_s, "peak_gb": peak,
-            "idle_share": idle, "cache_err": cache_err, "dropped": dropped,
-            "agree": agree / n_tok}
+            "attention_ms_per_step_est": per_step_ms, "tokens_per_s": n_tok / serve_s,
+            "prefill_s": prefill_s, "peak_gb": peak, "idle_share": idle, "cache_err": cache_err,
+            "dropped": dropped, "agree": agree, "results": results, "kv_cache_bytes": kv_cache,
+            "kernels_per_step": kernels, "seconds": secs}
 
 
 def decode_idle_share(model, reqs, max_len: int, step_ms: float, n: int = 8,
-                      tag: str = "lm") -> float:
+                      tag: str = "lm") -> tuple:
     """Device busy time of n decode steps under torch.profiler, as
     ServeEngine runs them (argmax copied to the host each step), against
-    the un-profiled median step wall time."""
+    the un-profiled median step wall time.  Returns (idle share,
+    decode_attention ms a step, CUDA kernels a step)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -2379,15 +2639,17 @@ def decode_idle_share(model, reqs, max_len: int, step_ms: float, n: int = 8,
     busy = sum(e.self_device_time_total for e in ka) / 1e3 / n
     if busy <= 0:
         print(f"[{tag}] decode step device time not measured (profiler saw none)", flush=True)
-        return float("nan"), float("nan")
+        return float("nan"), float("nan"), float("nan")
     top = sorted(ka, key=lambda e: -e.self_device_time_total)[:5]
     attn = sum(e.self_device_time_total for e in ka if "decode_attention" in e.key) / 1e3 / n
+    per_step = sum(e.count for e in ka) / n
     idle = 1.0 - busy / step_ms
     print(f"[{tag}] decode step under torch.profiler: device busy {busy:.3f} ms/step against the "
           f"un-profiled {step_ms:.3f} ms/step (device idle share {idle:.3f}; profiled wall "
-          f"{wall:.3f} ms/step); decode_attention kernel {attn:.4f} ms/step; top: " + "; ".join(
+          f"{wall:.3f} ms/step; {per_step:.0f} CUDA kernels a step); decode_attention kernel "
+          f"{attn:.4f} ms/step; top: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / 1e3 / n:.3f} ms" for e in top), flush=True)
-    return idle, attn
+    return idle, attn, per_step
 
 
 # ----------------------------------------------------------------------
@@ -2451,11 +2713,39 @@ def rag_phase(model, mp: dict, k: int = 10) -> dict:
             "ann_ms": float(np.median(ann_ms))}
 
 
+def int8_report(bf16: dict, int8: dict) -> None:
+    """Phase 6f beside 6b: gemma2-2b's decode step and its kernel per step
+    with the int8 cache and with bf16 (the profiler's, over decode steps of
+    the same first 8 requests in both), the caches' bytes, and the share of
+    6f's tokens equal to 6b's for the same requests (not gated)."""
+    same = total = 0
+    for uid, toks in int8["results"].items():
+        ref = bf16["results"][uid][:len(toks)]
+        same += sum(int(a == b) for a, b in zip(toks, ref))
+        total += len(toks)
+    int8["agree_bf16"] = same / total
+    print(f"[gemma2-int8] decode {int8['step_ms']:.3f} ms/step (bound {int8['bound_ms']:.3f}) "
+          f"against bf16's {bf16['step_ms']:.3f} (bound {bf16['bound_ms']:.3f}); decode_attention "
+          f"{int8['attention_ms_per_step']:.4f} ms/step against bf16's "
+          f"{bf16['attention_ms_per_step']:.4f} (torch.profiler, the first 8 requests' steps in "
+          f"both; int8 / bf16 {int8['attention_ms_per_step'] / bf16['attention_ms_per_step']:.3f}); "
+          f"KV cache "
+          f"{int8['kv_cache_bytes'] / 1e9:.3f} GB with scales against "
+          f"{bf16['kv_cache_bytes'] / 1e9:.3f} GB; tokens equal to 6b's for the same 8 requests: "
+          f"{same}/{total} = {same / total:.4f} (not gated)", flush=True)
+
+
 # ----------------------------------------------------------------------
 # phases 8, 8b: fp32 exactness at full width, depth 4
 # ----------------------------------------------------------------------
 def fp32_exactness(arch: str = QWEN, n_layers: int = 4, new: int = 16, plens=(64, 512),
-                   tag: str = "fp32", **overrides) -> dict:
+                   tag: str = "fp32", equal_len=None, teacher_forced: bool = True,
+                   **overrides) -> dict:
+    """Full width, ``n_layers`` deep, fp32: 4 requests (ragged on ``plens``,
+    or all of ``equal_len`` tokens, as a recurrent family is served) in one
+    batch give each the tokens it gets alone; with ``teacher_forced`` the
+    served tokens equal the argmax of one teacher-forced forward over
+    prompt + output, but where its top-2 gap is below 1e-4 x max|logit|."""
     import numpy as np
     import torch
 
@@ -2463,13 +2753,14 @@ def fp32_exactness(arch: str = QWEN, n_layers: int = 4, new: int = 16, plens=(64
     from repro_torch.models import Model
     from repro_torch.serve import Request, ServeEngine
 
+    t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32", **overrides)
     torch.cuda.reset_peak_memory_stats()
     model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
-               for n in rng.integers(plens[0], plens[1] + 1, 4)]
-    max_len = plens[1] + new
+    lens = [equal_len] * 4 if equal_len else rng.integers(plens[0], plens[1] + 1, 4)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
+    max_len = max(len(p) for p in prompts) + new
     batch = ServeEngine(model, batch_slots=4, max_len=max_len).run(
         [Request(uid=i, prompt=p, max_new_tokens=new) for i, p in enumerate(prompts)])
     for i, p in enumerate(prompts):
@@ -2478,24 +2769,30 @@ def fp32_exactness(arch: str = QWEN, n_layers: int = 4, new: int = 16, plens=(64
         check(solo == batch[i], f"{arch} fp32: prompt {i} ({len(p)} tokens) served alone gives "
                                 f"{solo}, in the batch {batch[i]}")
     near = 0
-    for i, p in enumerate(prompts):
+    for i, p in enumerate(prompts if teacher_forced else []):
         out = np.asarray(batch[i])
         h, _ = model._hidden({"tokens": np.concatenate([p, out[:-1].astype(np.int32)])[None]})
         logits = model._logits(h[:, len(p) - 1:])[0]
         top2 = logits.topk(2, dim=-1).values
-        tie = ((top2[:, 0] - top2[:, 1]) < 1e-4 * logits.abs().max(-1).values).cpu().numpy()
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        scale = logits.abs().max(-1).values.cpu().numpy()
+        tie = gap < 1e-4 * scale
         differ = logits.argmax(-1).cpu().numpy() != out
-        check(not (differ & ~tie).any(),
+        bad = np.flatnonzero(differ & ~tie)
+        check(not bad.size,
               f"{arch} fp32: prompt {i}: served tokens differ from the teacher-forced argmax at "
-              f"{np.flatnonzero(differ & ~tie).tolist()}")
+              f"{bad.tolist()}, top-2 gaps {gap[bad].tolist()} against 1e-4 x max|logit| "
+              f"{(1e-4 * scale[bad]).tolist()}")
         near += int(tie.sum())
     peak = torch.cuda.max_memory_allocated() / 1e9
     what = ", ".join(f"{k} {v}" for k, v in overrides.items())
+    tf = (f"served tokens equal the teacher-forced argmax ({near} positions with a top-2 gap "
+          f"below 1e-4 x max|logit| exempt)" if teacher_forced else
+          "teacher forcing not gated (it never reads the quantised cache)")
     print(f"[{tag}] {arch} full width, {n_layers} layers, fp32{', ' + what if what else ''}: "
-          f"{len(prompts)} ragged requests ({[len(p) for p in prompts]} tokens) x {new} new: batch "
-          f"tokens equal solo tokens; served tokens equal the teacher-forced argmax ({near} "
-          f"positions with a top-2 gap below 1e-4 x max|logit| exempt); peak memory {peak:.2f} GB",
-          flush=True)
+          f"{len(prompts)} requests ({[len(p) for p in prompts]} tokens) x {new} new: batch "
+          f"tokens equal solo tokens; {tf}; peak memory {peak:.2f} GB; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     del model
     torch.cuda.empty_cache()
     return {"near_ties": near}
@@ -2516,7 +2813,8 @@ CLI_SNAPSHOT_KEYS = (
 def cli_phase() -> dict:
     """``repro_torch.launch.serve.main`` in-process: the ann-trace mode over
     a 200,000-row corpus with 4 shards and the recall probe, then ``--mode
-    lm`` for gemma2-2b and olmoe-1b-7b (reduced, as the reference's)."""
+    lm`` for gemma2-2b, olmoe-1b-7b, hymba-1.5b and xlstm-1.3b (reduced, as
+    the reference's)."""
     import contextlib
     import io
     import tempfile
@@ -2545,7 +2843,7 @@ def cli_phase() -> dict:
           f"{ann_s:.1f} s; snapshot keys as the reference's; {n_spans} spans written; "
           f"masked_l2_topk launches {launches['masked_l2_topk']}; plans {snap['plan_counts']}; "
           + next(ln for ln in lines if ln.startswith("runtime exec wall")), flush=True)
-    for arch in (GEMMA, OLMOE):
+    for arch in (GEMMA, OLMOE, HYMBA, XLSTM):
         text = io.StringIO()
         with contextlib.redirect_stdout(text):
             results = serve.main(["--mode", "lm", "--arch", arch, "--requests", "8",
@@ -2584,6 +2882,7 @@ def main(argv=None) -> int:
     kc = kernel_checks(2_140_000, 384)
     dc = decode_checks()
     wc = decode_window_checks()
+    i8 = decode_int8_checks()
     mp = main_path(args.rows, args.train, args.serve, args.batch)
     dnf = dnf_phase(mp)
     rt = routed_phase(mp, dnf["unions"])
@@ -2592,23 +2891,31 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lv = live_phase(mp)
     ru = runtime_phase(mp)
-    t_phase = time.perf_counter()
     lm = lm_serving(n_layers=QWEN_LAYERS)
-    print(f"[lm] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     rag_phase(lm["model"], mp)
     del lm["model"], mp["engine"]
     gc.collect()
     torch.cuda.empty_cache()
-    served = [lm]
-    for arch, plens, max_len, tag in ((GEMMA, (4200, 8000), 8192, "gemma2"),
-                                      (OLMOE, (256, 2048), 2088, "olmoe")):
-        t_phase = time.perf_counter()
-        out = lm_serving(arch, plens=plens, max_len=max_len, tag=tag)
+    served = {"6": lm}
+    for phase, arch, kw in (
+            ("6b", GEMMA, dict(plens=(4200, 8000), max_len=8192, tag="gemma2")),
+            ("6c", OLMOE, dict(tag="olmoe")),
+            # 4 profiled steps, not 8: a step of ~3,000 kernels and ~10,000
+            # host ops makes the profiler's own processing most of a phase
+            ("6d", HYMBA, dict(prompt_lens=RECURRENT_PROMPTS, tag="hymba",
+                               teacher_forced=False, idle_steps=4)),
+            ("6e", XLSTM, dict(prompt_lens=RECURRENT_PROMPTS, tag="xlstm",
+                               teacher_forced=False, idle_steps=4)),
+            # 6b's first 8 requests with the int8 cache
+            ("6f", GEMMA, dict(plens=(4200, 8000), max_len=8192, tag="gemma2-int8", new=16,
+                               n_serve=8, kv_cache_int8=True, teacher_forced=False,
+                               idle_steps=4))):
+        out = lm_serving(arch, **kw)
         del out["model"]
         gc.collect()
         torch.cuda.empty_cache()
-        served.append(out)
-        print(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+        served[phase] = out
+    int8_report(served["6b"], served["6f"])
     t_phase = time.perf_counter()
     fp32_exactness()
     # gemma2: prompts past its 4096 window; olmoe at the reference's reduced()
@@ -2618,13 +2925,27 @@ def main(argv=None) -> int:
     fp32_exactness(OLMOE, tag="fp32b", capacity_factor=8.0)
     print(f"[fp32] phases 8 and 8b took {time.perf_counter() - t_phase:.1f} s", flush=True)
     t_phase = time.perf_counter()
+    # 8c: hymba with layer 0 global and three 1,024 windows passed by 1,100
+    # tokens; xlstm as one group (1 sLSTM + 7 mLSTM) over 600 tokens, no
+    # multiple of the 256-step chunk; qwen3 with the int8 cache
+    fp32_exactness(HYMBA, equal_len=1100, tag="fp32c")
+    fp32_exactness(XLSTM, n_layers=8, equal_len=600, tag="fp32c")
+    fp32_exactness(QWEN, tag="fp32c", teacher_forced=False, kv_cache_int8=True)
+    secs_8c = time.perf_counter() - t_phase
+    print(f"[fp32c] phase 8c took {secs_8c:.1f} s", flush=True)
+    t_phase = time.perf_counter()
     cli_phase()
     print(f"[cli] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    new_s = (i8["seconds"] + sum(served[p]["seconds"] for p in ("6d", "6e", "6f")) + secs_8c)
+    print(f"[smoke] this slice's new phases (3d, 6d, 6e, 6f, 8c) took {new_s:.1f} s; the "
+          f"script {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     head = kc["rows"][(1, 2_140_000, 10)]
     b256 = kc["rows"][(256, 2_140_000, 10)]
     dhead = dc["rows"][(8, 2088, "bf16")]
     wrow, wcap = wc["rows"][("gemma2", 4096, 0.0)], wc["rows"][("gemma2", 4096, 50.0)]
+    irow, iwin = i8["rows"][("qwen3", None, 0.0)], i8["rows"][("gemma2", 4096, 0.0)]
+    ihym = i8["rows"][("hymba", 1024, 0.0)]
     kernels = [{
         "name": "masked_l2_topk",
         "route": "cuda",
@@ -2643,12 +2964,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:29",
-        "launches": sum(p["launches"]["decode_attention"] for p in served),
-        "launches_by_phase": {"6": lm["launches"]["decode_attention"],
-                              "6b": served[1]["launches"]["decode_attention"],
-                              "6c": served[2]["launches"]["decode_attention"]},
-        "max_abs_err": max(dc["max_abs_err"], wc["max_abs_err"],
-                           *(p["cache_err"] for p in served)),
+        "launches": sum(p["launches"]["decode_attention"] for p in served.values()),
+        "launches_by_phase": {k: p["launches"]["decode_attention"] for k, p in served.items()},
+        "max_abs_err": max(dc["max_abs_err"], wc["max_abs_err"], i8["max_abs_err"],
+                           *(p["cache_err"] for p in served.values())),
         "ms": dhead["ms"], "plain_ms": dhead["plain_ms"], "bound_ms": dhead["bound_ms"],
         "bound_by": dhead["bound_by"], "library_ms": dhead["library_ms"],
         "device_ms": dhead["device_ms"], "plain_device_ms": dhead["plain_device_ms"],
@@ -2663,6 +2982,22 @@ def main(argv=None) -> int:
                          "window": 4096, "softcap": 0.0, "positions": wrow["positions"]},
         "window_softcap": {k: wcap[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                                                 "device_ms")},
+        "int8": {**{k: irow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "device_ms", "plain_device_ms", "library_device_ms",
+                                          "bf16_ms", "bf16_device_ms", "max_abs_err")},
+                 "library": "dequantize_kv of the whole cache + scaled_dot_product_attention "
+                            "(two calls)",
+                 "shape": {"B": 8, "KV": 8, "GQ": 5, "S": 2088, "dh": 128, "kv_dtype": "int8",
+                           "dequant": "bf16", "positions": irow["positions"]},
+                 "window": {k: iwin[k] for k in ("ms", "device_ms", "bound_ms", "library_ms",
+                                                  "bf16_device_ms")},
+                 "window_shape": {"B": 8, "KV": 4, "GQ": 2, "S": WINDOW_S, "dh": 256,
+                                  "window": 4096, "softcap": 0.0,
+                                  "positions": iwin["positions"]},
+                 "hymba": {k: ihym[k] for k in ("ms", "device_ms", "bound_ms", "library_ms",
+                                                 "bf16_device_ms")},
+                 "hymba_shape": {"B": 8, "KV": 5, "GQ": 5, "S": 2088, "dh": 64, "window": 1024,
+                                 "positions": ihym["positions"]}},
         "check": "ok",
     }]
     print(json.dumps({"kernels": kernels}))

@@ -206,19 +206,30 @@ def model_params_from_reference(cfg, params: Dict, device=DEFAULT_DEVICE) -> Mod
     layer axis (the reference inits layers with ``jax.vmap``); layer i of
     the port gets row i, nested dicts by dotted names (an MoE layer's
     ``ffn.router``, ``ffn.w_gate`` (E, d, f), ``ffn.shared.w_up``; gemma2's
-    post-norms ``ln1b``, ``ln2b``).  Every array is cast to ``cfg.dtype`` on
-    loading.
+    post-norms ``ln1b``, ``ln2b``; a hybrid layer's ``mamba.a_log``).  An
+    xLSTM's ``blocks`` subtree is stacked on the G groups, and its
+    ``mlstm.*`` leaves on the every-1 mLSTMs of a group after that: group g
+    gets ``blocks.<g>.slstm.*``, ``blocks.<g>.slstm_ln``,
+    ``blocks.<g>.mlstm_ln`` (every-1, d) and ``blocks.<g>.mlstm.<j>.*``.
+    Every array is cast to the type the port stores it in: ``cfg.dtype``,
+    or fp32 for the recurrences' weights the reference uses uncast.
     """
     model = Model(cfg, device=device)
     state = {"embed": params["embed"], "final_ln": params["final_ln"]}
     if not cfg.tie_embeddings:
         state["lm_head"] = params["lm_head"]
-    for path, arr in _flatten(params["layers"]):
+    stacked = "blocks" if cfg.family == "ssm" else "layers"
+    n = len(model.blocks) if cfg.family == "ssm" else cfg.n_layers
+    for path, arr in _flatten(params[stacked]):
         arr = np.asarray(arr)
-        if arr.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers.{path}: leading axis {arr.shape[0]} != {cfg.n_layers} layers")
-        for i in range(cfg.n_layers):
-            state[f"layers.{i}.{path}"] = arr[i]
+        if arr.shape[0] != n:
+            raise ValueError(f"{stacked}.{path}: leading axis {arr.shape[0]} != {n}")
+        for i in range(n):
+            if path.startswith("mlstm."):
+                for j in range(arr.shape[1]):
+                    state[f"{stacked}.{i}.mlstm.{j}.{path[6:]}"] = arr[i, j]
+            else:
+                state[f"{stacked}.{i}.{path}"] = arr[i]
     own = model.state_dict()
     if set(state) != set(own):
         raise ValueError(f"parameter names differ: reference-only {sorted(set(state) - set(own))}, "

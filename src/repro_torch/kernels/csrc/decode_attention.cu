@@ -8,7 +8,10 @@
 // caches, where cap(x) = softcap * tanh(x / softcap) when softcap > 0 and x
 // otherwise: the reference's decode_attention_xla contract (gemma2 decodes
 // with a 4096 window on every other layer and a softcap of 50).  q, the
-// accumulation and out are fp32; K/V are read as float or bf16.
+// accumulation and out are fp32; K/V are read as float, bf16, or int8 with an
+// fp32 scale per (row, kv head, position): the int8 KV cache of
+// repro/models/model.py (`kv_cache_int8`), whose decode dequantizes the whole
+// cache, casts it to the model's compute type and runs decode_attention_xla.
 //
 // What bounds it on an H100 SXM (3.35 TB/s HBM): the bytes of K and V.  It
 // reads sum_b length_b * KV * dh * 2 * sizeof(elem) bytes and does about 4
@@ -87,6 +90,19 @@
 //     row is bitwise the same alone or in a batch.  The softcap is applied in
 //     natural units before the log2(e) factor.  With window >= len and no
 //     softcap every block does what it did before both existed.
+//   * int8 K/V (`decode_attention_int8`) are dequantized in registers and no
+//     dequantized cache is ever written: a position costs dh + 4 bytes of K
+//     and as many of V, against 2 dh in bf16.  Each value is q * scale in
+//     fp32, then rounded to bf16 when the model computes in bf16 (a launch
+//     argument), which is what the reference's `dequantize_kv(...).astype(
+//     x.dtype)` hands its attention.  The lanes, rows and chunks are bf16's:
+//     a lane reads 8 int8 values (8 bytes) where bf16 reads 8 values (16
+//     bytes), so a sub-tile holds bf16's R rows in half the bytes and each
+//     warp's ring has twice the stages.  A sub-tile's R scales of K and of V
+//     arrive by 4-byte `cp.async` copies, one per lane and row, issued with
+//     the sub-tile's bulk copies and awaited with `cp.async.wait_group`: a
+//     window's first position need not be a multiple of 4, so the scales'
+//     start is not 16-byte aligned for a bulk copy.
 // Within a warp, a K/V row is read as 16-byte pieces by LPR lanes, the GQ
 // queries sit in registers and one K/V element serves every head of the group.
 #include <cuda_bf16.h>
@@ -99,7 +115,7 @@ namespace {
 constexpr int WARPS = 4;               // warps per block (wrapper: WARPS)
 constexpr int THREADS = WARPS * 32;
 constexpr int STAGE_BYTES = 8192;      // K + V bytes of one sub-tile (wrapper: STAGE_BYTES)
-constexpr int MAX_STAGES = 2;          // sub-tiles in each warp's ring
+constexpr int MAX_STAGES = 2;          // sub-tiles in each warp's ring (int8: twice as many)
 constexpr int MIN_CHUNKS = 17;         // chunks a row has from S = 16 passes on (wrapper: MIN_CHUNKS)
 constexpr int LONG_CHUNKS = 32;        // chunks a long row aims at (wrapper: LONG_CHUNKS)
 constexpr int MAX_PASSES = 16;         // passes a chunk grows to before LONG_CHUNKS applies
@@ -112,6 +128,19 @@ __host__ __device__ constexpr int ilog2(int x) { return x > 1 ? 1 + ilog2(x / 2)
 // rows of K (and of V) in one sub-tile
 __host__ __device__ constexpr int sub_rows(int dh, int elem) {
   return STAGE_BYTES / (2 * dh * elem);
+}
+
+// the element size that sets the tiling: int8 tiles as bf16 does
+// (wrapper: the `elem` it passes to chunk_positions)
+template <typename T>
+__host__ __device__ constexpr int tile_elem() {
+  return sizeof(T) == 1 ? 2 : (int)sizeof(T);
+}
+
+// sub-tiles in each warp's ring: an int8 stage is half of STAGE_BYTES
+template <typename T>
+__host__ __device__ constexpr int max_stages() {
+  return sizeof(T) == 1 ? 2 * MAX_STAGES : MAX_STAGES;
 }
 
 // positions per chunk; mirrors kernels/decode_attention.py::chunk_positions
@@ -178,6 +207,26 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// 4 bytes from global `src` to shared `dst` (LDGSTS), in this thread's
+// current cp.async group
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most `newer` of this thread's cp.async groups are pending
+__device__ __forceinline__ void cp_async_wait(int newer) {
+  switch (newer) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+  }
+}
+
 // Add 1 to a row's arrival counter with release and acquire semantics at
 // device scope; returns the count before.
 __device__ __forceinline__ int arrive(int* counter) {
@@ -186,15 +235,19 @@ __device__ __forceinline__ int arrive(int* counter) {
   return old;
 }
 
-// 16 bytes of K/V, widened to floats
-__device__ __forceinline__ void widen(const uint4& raw, float* out, const float*) {
+// One lane's piece of a K/V row in shared memory, widened to floats: 16
+// bytes of float or bf16 (the scale and rounding are unused), or 8 int8
+// values dequantized as q * scale in fp32, rounded to bf16 when `to_bf16`.
+__device__ __forceinline__ void widen(const float* p, float* out, float, bool) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
   out[0] = __uint_as_float(raw.x);
   out[1] = __uint_as_float(raw.y);
   out[2] = __uint_as_float(raw.z);
   out[3] = __uint_as_float(raw.w);
 }
 
-__device__ __forceinline__ void widen(const uint4& raw, float* out, const __nv_bfloat16*) {
+__device__ __forceinline__ void widen(const __nv_bfloat16* p, float* out, float, bool) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
   const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {          // element 2i is the low half of word i
@@ -203,34 +256,54 @@ __device__ __forceinline__ void widen(const uint4& raw, float* out, const __nv_b
   }
 }
 
+__device__ __forceinline__ void widen(const int8_t* p, float* out, float scale, bool to_bf16) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  // byte b + 128 placed in the low byte of 2^23 is exactly the float 2^23 + b + 128
+  const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float q = __uint_as_float(__byte_perm(w[i], 0x4b000000u, 0x7650 + j)) - 8388736.f;
+      const float x = q * scale;
+      out[4 * i + j] = to_bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+    }
+}
+
 // Block (chunk c, kv head, row b).  GQM is the register width of the
 // per-head state; PAD says gq < GQM, and heads g >= gq are skipped.
 // Workspace: part_m, part_l (B, KV, n_chunks, gq) and part_acc
 // (B, KV, n_chunks, gq, DH) f32, one after the other in `part`; counters
 // (B, KV) int32, zero between calls.
+// int8 K/V also take k_scale/v_scale (B, KV, S) f32 and `to_bf16`; the
+// others pass null scales.
 template <typename T, int DH, int GQM, bool PAD>
 __global__ void __launch_bounds__(THREADS, min_blocks(GQM))
 decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ lengths, int B, int KV,
-                        int S, int gq, int chunk, int n_chunks, int window, float softcap,
-                        int n_stages,
+                        const T* __restrict__ v, const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale, const int* __restrict__ lengths,
+                        int B, int KV, int S, int gq, int chunk, int n_chunks, int window,
+                        float softcap, bool to_bf16, int n_stages,
                         float* __restrict__ part, int* __restrict__ counters,
                         float* __restrict__ out) {
   constexpr int ELEM = sizeof(T);
-  constexpr int VEC = 16 / ELEM;                      // elements per 16-byte piece
+  constexpr bool I8 = ELEM == 1;
+  constexpr int VEC = (I8 ? 8 : 16) / ELEM;           // elements per piece (16 bytes; int8 8)
   constexpr int CPR = DH / VEC;                       // pieces per row
   constexpr int LPR = CPR < 32 ? CPR : 32;            // lanes per row
   constexpr int NV = CPR / LPR;                       // pieces per lane per row
   constexpr int EPL = NV * VEC;                       // elements per lane
   constexpr int RPW = 32 / LPR;                       // rows per warp step
-  constexpr int R = sub_rows(DH, ELEM);               // rows per sub-tile
+  constexpr int R = sub_rows(DH, tile_elem<T>());     // rows per sub-tile
   constexpr int STEPS = R / RPW;
   constexpr int ROW_BYTES = DH * ELEM;
+  constexpr int STAGE = 2 * R * ROW_BYTES;            // K + V bytes of one sub-tile
+  constexpr int MST = max_stages<T>();
   constexpr int TL = ilog2(LPR) < ilog2(STEPS) ? ilog2(LPR) : ilog2(STEPS);  // transposed levels
   constexpr int JF = STEPS >> TL;                     // rows a lane ends with
   constexpr int DUP = LPR >> TL;                      // lanes that end with the same rows
   constexpr int GP = (GQM + 3) / 4 * 4;               // heads padded to a float4
-  static_assert(NV * LPR == CPR && R % RPW == 0 && R * ROW_BYTES * 2 == STAGE_BYTES,
+  static_assert(NV * LPR == CPR && R % RPW == 0 && MST * STAGE == MAX_STAGES * STAGE_BYTES,
                 "tile split");
 
   const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -254,38 +327,55 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const int skip = lo > start ? lo - start : 0;       // rows of this chunk below lo
 
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[WARPS][MAX_STAGES];
+  __shared__ __align__(8) uint64_t bars[WARPS][MST];
+  __shared__ float sc_s[I8 ? WARPS : 1][I8 ? MST : 1][2][I8 ? R : 1];  // int8 K, V scales
   __shared__ int is_last;
   __shared__ float chunk_m[GQM];
   __shared__ __align__(16) float p_s[WARPS][R][GP];   // p of the current sub-tile
 
   const int sub = lane % LPR, rg = lane / LPR;
-  unsigned char* ring = smem + (size_t)warp * n_stages * STAGE_BYTES;
+  unsigned char* ring = smem + (size_t)warp * n_stages * STAGE;
   const int s_lo = skip / R;                          // the first live sub-tile
   const int n_live = (n + R - 1) / R - s_lo;          // live sub-tiles in the chunk
   const int mine = n_live > warp ? (n_live - 1 - warp) / WARPS + 1 : 0;
   const T* kb = k + (bk * S + start) * DH;
   const T* vb = v + (bk * S + start) * DH;
 
-  // lane 0: copy this warp's i-th sub-tile (chunk sub-tile s_lo + warp +
-  // i * WARPS) into stage i % n_stages, K in the first half, V in the second,
-  // from the row `first` on (rows below lo stay uncopied)
+  // copy this warp's i-th sub-tile (chunk sub-tile s_lo + warp + i * WARPS)
+  // into stage i % n_stages, K in the first half, V in the second, from the
+  // row `first` on (rows below lo stay uncopied): lane 0 issues the bulk
+  // copies; with int8 every lane then copies the scales of its rows and
+  // commits a cp.async group (one per sub-tile, empty or not)
   auto fetch = [&](int i) {
     const int r0 = (s_lo + warp + i * WARPS) * R;
     const int first = skip > r0 ? skip - r0 : 0;
-    const uint32_t bytes = (uint32_t)(min(R, n - r0) - first) * ROW_BYTES;
+    const int rows = min(R, n - r0);
     const int stage = i % n_stages;
-    const uint32_t dst = smem_u32(ring + stage * STAGE_BYTES) + first * ROW_BYTES;
-    const uint32_t bar = smem_u32(&bars[warp][stage]);
-    mbar_expect(bar, 2 * bytes);
-    bulk_load(dst, kb + (size_t)(r0 + first) * DH, bytes, bar);
-    bulk_load(dst + STAGE_BYTES / 2, vb + (size_t)(r0 + first) * DH, bytes, bar);
+    if (lane == 0) {
+      const uint32_t bytes = (uint32_t)(rows - first) * ROW_BYTES;
+      const uint32_t dst = smem_u32(ring + stage * STAGE) + first * ROW_BYTES;
+      const uint32_t bar = smem_u32(&bars[warp][stage]);
+      mbar_expect(bar, 2 * bytes);
+      bulk_load(dst, kb + (size_t)(r0 + first) * DH, bytes, bar);
+      bulk_load(dst + STAGE / 2, vb + (size_t)(r0 + first) * DH, bytes, bar);
+    }
+    if constexpr (I8) {
+      const size_t p0 = bk * S + start + r0;
+      for (int r = lane; r < R; r += 32) {
+        if (r >= first && r < rows) {
+          cp_async4(smem_u32(&sc_s[warp][stage][0][r]), k_scale + p0 + r);
+          cp_async4(smem_u32(&sc_s[warp][stage][1][r]), v_scale + p0 + r);
+        }
+      }
+      cp_async_commit();
+    }
   };
   if (lane == 0) {
     for (int s = 0; s < n_stages; ++s) mbar_init(smem_u32(&bars[warp][s]));
     fence_mbar_init();
-    for (int i = 0; i < min(mine, n_stages); ++i) fetch(i);
   }
+  __syncwarp();
+  for (int i = 0; i < min(mine, n_stages); ++i) fetch(i);
   __syncwarp();
 
   // lane element e of a row sits at column col(e) = (e / VEC * LPR + sub) * VEC + e % VEC
@@ -325,8 +415,12 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
     const int r0 = (s_lo + warp + i * WARPS) * R;
     const int rows = min(R, n - r0);                  // rows [first, rows) are live
     const int first = skip > r0 ? skip - r0 : 0;
-    const T* ks = reinterpret_cast<const T*>(ring + stage * STAGE_BYTES);
-    const T* vs = reinterpret_cast<const T*>(ring + stage * STAGE_BYTES + STAGE_BYTES / 2);
+    const T* ks = reinterpret_cast<const T*>(ring + stage * STAGE);
+    const T* vs = reinterpret_cast<const T*>(ring + stage * STAGE + STAGE / 2);
+    if constexpr (I8) {              // this sub-tile's scales: every later group may pend
+      cp_async_wait(min(mine, i + n_stages) - 1 - i);
+      __syncwarp();
+    }
 
     // partial dots: lane (rg, sub) holds q[g] . k[r] over its columns for
     // the rows r = j * RPW + rg of the sub-tile
@@ -334,10 +428,11 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < STEPS; ++j) {
       float kx[EPL];
+      float k_sc = 0.f;
+      if constexpr (I8) k_sc = sc_s[warp][stage][0][j * RPW + rg];
 #pragma unroll
       for (int t = 0; t < NV; ++t)
-        widen(*reinterpret_cast<const uint4*>(ks + (j * RPW + rg) * DH + (t * LPR + sub) * VEC),
-              kx + t * VEC, ks);
+        widen(ks + (j * RPW + rg) * DH + (t * LPR + sub) * VEC, kx + t * VEC, k_sc, to_bf16);
 #pragma unroll
       for (int g = 0; g < GQM; ++g) {
         pd[j][g] = 0.f;
@@ -418,10 +513,11 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
       const int r = j * RPW + rg;
       if (r >= first && r < rows) {
         float vx[EPL], w[GP];
+        float v_sc = 0.f;
+        if constexpr (I8) v_sc = sc_s[warp][stage][1][r];
 #pragma unroll
         for (int t = 0; t < NV; ++t)
-          widen(*reinterpret_cast<const uint4*>(vs + r * DH + (t * LPR + sub) * VEC),
-                vx + t * VEC, vs);
+          widen(vs + r * DH + (t * LPR + sub) * VEC, vx + t * VEC, v_sc, to_bf16);
 #pragma unroll
         for (int h = 0; h < GP; h += 4) {
           const float4 x = *reinterpret_cast<const float4*>(&p_s[warp][r][h]);
@@ -439,8 +535,8 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncwarp();                      // every lane is done with this stage
-    if (lane == 0 && i + n_stages < mine) {
-      fence_proxy_async();
+    if (i + n_stages < mine) {
+      if (lane == 0) fence_proxy_async();
       fetch(i + n_stages);
     }
   }
@@ -495,10 +591,12 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  const size_t rows_all = (size_t)B * KV * n_chunks;  // partials of the whole grid
+  // partials of the whole grid: m and l each padded to whole float4s, so
+  // that acc starts 16-byte aligned whatever B * KV * n_chunks * gq is
+  const size_t ml = ((size_t)B * KV * n_chunks * ng + 3) / 4 * 4;
   float* part_m = part;
-  float* part_l = part + rows_all * ng;
-  float* part_acc = part + 2 * rows_all * ng;
+  float* part_l = part + ml;
+  float* part_acc = part + 2 * ml;
   const size_t pc = bk * n_chunks;                     // this row's first partial
   for (int i = tid; i < ng * DH / 4; i += THREADS) {  // four columns a thread
     const int g = i / (DH / 4), d = i % (DH / 4) * 4;
@@ -594,14 +692,28 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
   if (tid == 0) counters[bk] = 0;      // ready for the next call
 }
 
+// The kernel's launch arguments past the element pointers, passed through
+// the dispatch on dh and the group size.
+struct Args {
+  const float* k_scale;
+  const float* v_scale;
+  const int* lengths;
+  int B, KV, S, gq, chunk, n_chunks, window;
+  float softcap;
+  bool to_bf16;
+  float* part;
+  int* counters;
+  float* out;
+  cudaStream_t stream;
+};
+
 template <typename T, int DH, int GQM, bool PAD>
-int launch(const float* q, const T* k, const T* v, const int* lengths, int B, int KV, int S,
-           int gq, int chunk, int n_chunks, int window, float softcap, float* part,
-           int* counters, float* out, cudaStream_t stream) {
-  constexpr int R = sub_rows(DH, (int)sizeof(T));
-  const int passes = chunk / (WARPS * R);
-  const int n_stages = passes < MAX_STAGES ? passes : MAX_STAGES;
-  const size_t ring = (size_t)WARPS * n_stages * STAGE_BYTES;
+int launch(const float* q, const T* k, const T* v, const Args& a) {
+  constexpr int R = sub_rows(DH, tile_elem<T>());
+  constexpr int STAGE = 2 * R * DH * (int)sizeof(T);
+  const int passes = a.chunk / (WARPS * R);
+  const int n_stages = passes < max_stages<T>() ? passes : max_stages<T>();
+  const size_t ring = (size_t)WARPS * n_stages * STAGE;
   const size_t red_warps = (size_t)WARPS * GQM * DH + 2 * WARPS * GQM;
   const size_t red_chunks = (size_t)2 * MAX_CHUNKS * GQM + GQM;
   const size_t red = (red_warps > red_chunks ? red_warps : red_chunks) * sizeof(float);
@@ -614,46 +726,38 @@ int launch(const float* q, const T* k, const T* v, const int* lengths, int B, in
     if (err != cudaSuccess) return (int)err;
     allowed = smem;
   }
-  kernel<<<dim3(n_chunks, KV, B), THREADS, smem, stream>>>(
-      q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, window, softcap, n_stages, part, counters,
-      out);
+  kernel<<<dim3(a.n_chunks, a.KV, a.B), THREADS, smem, a.stream>>>(
+      q, k, v, a.k_scale, a.v_scale, a.lengths, a.B, a.KV, a.S, a.gq, a.chunk, a.n_chunks,
+      a.window, a.softcap, a.to_bf16, n_stages, a.part, a.counters, a.out);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DH>
-int launch_gq(const float* q, const T* k, const T* v, const int* lengths, int B, int KV, int S,
-              int gq, int chunk, int n_chunks, int window, float softcap, float* part,
-              int* counters, float* out, cudaStream_t st) {
-#define DECODE_LAUNCH(G, P)                                                                  \
-  launch<T, DH, G, P>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, window, softcap, part, \
-                      counters, out, st)
-  switch (gq) {
+int launch_gq(const float* q, const T* k, const T* v, const Args& a) {
+#define DECODE_LAUNCH(G, P) launch<T, DH, G, P>(q, k, v, a)
+  switch (a.gq) {
     case 1: return DECODE_LAUNCH(1, false);
     case 2: return DECODE_LAUNCH(2, false);
     case 4: return DECODE_LAUNCH(4, false);
     case 5: return DECODE_LAUNCH(5, false);
     case 8: return DECODE_LAUNCH(8, false);
     case 16: return DECODE_LAUNCH(16, false);
-    default: return gq < 8 ? DECODE_LAUNCH(8, true) : DECODE_LAUNCH(16, true);
+    default: return a.gq < 8 ? DECODE_LAUNCH(8, true) : DECODE_LAUNCH(16, true);
   }
 #undef DECODE_LAUNCH
 }
 
 template <typename T>
-int decode_attention(const float* q, const T* k, const T* v, const int* lengths, int B, int KV,
-                     int S, int gq, int dh, int chunk, int n_chunks, int window, float softcap,
-                     float* part, int* counters, float* out, void* stream_ptr) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-  if (B < 1 || B > 65535 || KV < 1 || KV > 65535 || S < 1 || gq < 1 || gq > 16 ||
-      window < 1 || !(softcap >= 0.f && softcap <= 3.4e38f) ||
+int decode_attention(const float* q, const T* k, const T* v, int dh, const Args& a) {
+  if (a.B < 1 || a.B > 65535 || a.KV < 1 || a.KV > 65535 || a.S < 1 || a.gq < 1 || a.gq > 16 ||
+      a.window < 1 || !(a.softcap >= 0.f && a.softcap <= 3.4e38f) ||
       (dh != 32 && dh != 64 && dh != 128 && dh != 256) ||
-      chunk != chunk_positions(S, dh, (int)sizeof(T)) || n_chunks != (S + chunk - 1) / chunk ||
-      n_chunks > MAX_CHUNKS)
+      a.chunk != chunk_positions(a.S, dh, tile_elem<T>()) ||
+      a.n_chunks != (a.S + a.chunk - 1) / a.chunk || a.n_chunks > MAX_CHUNKS ||
+      (sizeof(T) == 1) != (a.k_scale != nullptr && a.v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
   switch (dh) {
-#define DECODE_DH(D)                                                                      \
-  launch_gq<T, D>(q, k, v, lengths, B, KV, S, gq, chunk, n_chunks, window, softcap, part, \
-                  counters, out, st)
+#define DECODE_DH(D) launch_gq<T, D>(q, k, v, a)
     case 32: return DECODE_DH(32);
     case 64: return DECODE_DH(64);
     case 128: return DECODE_DH(128);
@@ -667,23 +771,43 @@ int decode_attention(const float* q, const T* k, const T* v, const int* lengths,
 // q (B, KV, gq, dh) f32; k/v (B, KV, S, dh), 16-byte aligned; lengths (B,)
 // i32; chunk = chunk_positions(S, dh, sizeof(elem)) and n_chunks =
 // ceil(S / chunk); window >= 1 (S or more = full attention); softcap >= 0
-// (0 = none); part: 2 * B*KV*n_chunks*gq + B*KV*n_chunks*gq*dh f32;
+// (0 = none); part: 2 * ceil4(B*KV*n_chunks*gq) + B*KV*n_chunks*gq*dh f32;
 // counters (B, KV) i32, zero on entry and left zero; out (B, KV, gq, dh) f32.
 // All contiguous on one device.  Launches one kernel on `stream` without
 // synchronising; returns cudaGetLastError().
+#ifndef DECODE_ATTENTION_INT8
 extern "C" int decode_attention_f32(const float* q, const float* k, const float* v,
                                     const int* lengths, int B, int KV, int S, int gq, int dh,
                                     int chunk, int n_chunks, int window, float softcap,
                                     float* part, int* counters, float* out, void* stream) {
-  return decode_attention<float>(q, k, v, lengths, B, KV, S, gq, dh, chunk, n_chunks, window,
-                                 softcap, part, counters, out, stream);
+  const Args a{nullptr, nullptr, lengths, B, KV, S, gq, chunk, n_chunks, window, softcap,
+               false, part, counters, out, static_cast<cudaStream_t>(stream)};
+  return decode_attention<float>(q, k, v, dh, a);
 }
 
 extern "C" int decode_attention_bf16(const float* q, const void* k, const void* v,
                                      const int* lengths, int B, int KV, int S, int gq, int dh,
                                      int chunk, int n_chunks, int window, float softcap,
                                      float* part, int* counters, float* out, void* stream) {
-  return decode_attention<__nv_bfloat16>(
-      q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), lengths,
-      B, KV, S, gq, dh, chunk, n_chunks, window, softcap, part, counters, out, stream);
+  const Args a{nullptr, nullptr, lengths, B, KV, S, gq, chunk, n_chunks, window, softcap,
+               false, part, counters, out, static_cast<cudaStream_t>(stream)};
+  return decode_attention<__nv_bfloat16>(q, static_cast<const __nv_bfloat16*>(k),
+                                         static_cast<const __nv_bfloat16*>(v), dh, a);
 }
+
+#else
+// int8 k/v (B, KV, S, dh) with f32 k_scale/v_scale (B, KV, S); chunk =
+// chunk_positions(S, dh, 2), bf16's; to_bf16 != 0 rounds each dequantized
+// value to bf16 (a bf16 model), 0 keeps it fp32.  Otherwise as above.
+extern "C" int decode_attention_int8(const float* q, const void* k, const void* v,
+                                     const float* k_scale, const float* v_scale,
+                                     const int* lengths, int B, int KV, int S, int gq, int dh,
+                                     int chunk, int n_chunks, int window, float softcap,
+                                     int to_bf16, float* part, int* counters, float* out,
+                                     void* stream) {
+  const Args a{k_scale, v_scale, lengths, B, KV, S, gq, chunk, n_chunks, window, softcap,
+               to_bf16 != 0, part, counters, out, static_cast<cudaStream_t>(stream)};
+  return decode_attention<int8_t>(q, static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
+                                  dh, a);
+}
+#endif

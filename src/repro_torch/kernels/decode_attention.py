@@ -3,7 +3,9 @@
 Port of the Pallas kernel ``repro/kernels/decode_attention.py::_kernel``.
 The kernel is CUDA C++ for ``sm_90a`` (``csrc/decode_attention.cu``), built
 with ``nvcc`` at first use and bound with :mod:`ctypes` by the shared
-loader in :mod:`.nvcc`.
+loader in :mod:`.nvcc`: once for the f32 and bf16 caches and once, with
+``-DDECODE_ATTENTION_INT8``, for int8 ones, two nvcc processes that run
+side by side (:func:`build_library`, :func:`build_int8_library`).
 
 What bounds it: the K/V bytes below each row's length (about 5 flop per
 byte at qwen3-14b's GQ = 5 in bf16, far below the H100's ridge), so the
@@ -36,7 +38,15 @@ cost.  One launch per call:
   the same alone or in any batch with a window too;
 * nothing allocated per call but ``out``: the workspace (partials and
   counters) is cached per (device, stream, shape) and its counters are
-  zeroed once, at creation; the kernel leaves them zero.
+  zeroed once, at creation; the kernel leaves them zero;
+* int8 K/V with fp32 scales (B, KV, S), the int8 KV cache's layout
+  (``decode_attention_int8``): dequantized in registers, each value q *
+  scale rounded to ``dequant_dtype`` (bf16 or fp32, a launch argument) as
+  the reference's ``dequantize_kv(...).astype(x.dtype)``; no dequantized
+  cache is written, so a position costs dh + 4 bytes of K and of V.  It
+  tiles as bf16 does (``TILE_ELEM``), and its scales arrive by 4-byte
+  copies, since a window's first position need not leave them 16-byte
+  aligned.
 
 :func:`decode_attention_dispatch` is the one entry: tensors on the CPU take
 the plain PyTorch version (:func:`repro_torch.kernels.ref.decode_attention_ref`);
@@ -57,8 +67,9 @@ from .ref import decode_attention_ref
 
 __all__ = [
     "WARPS", "SUPPORTED_DH", "MAX_GQ", "SOURCE", "sub_tile_rows", "chunk_positions",
-    "window_positions",
-    "workspace_numel", "workspace", "build_library", "launches", "reset_launches",
+    "tile_elem", "window_positions",
+    "workspace_numel", "workspace", "build_library", "build_int8_library", "launches",
+    "reset_launches",
     "check_contract", "decode_attention_cuda", "decode_attention_dispatch",
 ]
 
@@ -79,6 +90,12 @@ launches = 0                  # kernel launches since the last reset_launches()
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+def tile_elem(dtype: torch.dtype) -> int:
+    """The element size the tiling follows: the cache's own, but int8 tiles
+    as bf16 (8 values a lane, bf16's rows a sub-tile)."""
+    return 2 if dtype == torch.int8 else torch.finfo(dtype).bits // 8
 
 
 def sub_tile_rows(dh: int, elem: int) -> int:
@@ -105,10 +122,12 @@ def chunk_positions(s: int, dh: int, elem: int) -> int:
 
 def workspace_numel(b: int, kv: int, gq: int, dh: int, n_chunks: int) -> Tuple[int, int]:
     """(fp32 partials, int32 counters): m and l per (row, kv head, chunk,
-    head), acc per (row, kv head, chunk, head, column); one counter per
-    (row, kv head)."""
+    head), each padded to a multiple of 4 so that acc, per (row, kv head,
+    chunk, head, column), starts 16-byte aligned (hymba's 5 x 5 heads make
+    the count odd at an odd B and chunk count); one counter per (row, kv
+    head)."""
     rows = b * kv * n_chunks * gq
-    return 2 * rows + rows * dh, b * kv
+    return 2 * (-(-rows // 4) * 4) + rows * dh, b * kv
 
 
 _WORKSPACE: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = OrderedDict()
@@ -143,8 +162,18 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = i32
 
 
+def _bind_int8(lib: ctypes.CDLL) -> None:
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.decode_attention_int8.argtypes = [vp] * 6 + [i32] * 8 + [f32, i32] + [vp] * 4
+    lib.decode_attention_int8.restype = i32
+
+
+# the f32 and bf16 entries, and the int8 one: one source built twice, so
+# the two halves of the instantiations compile side by side
 _LIB = CudaLibrary(SOURCE, _bind)
+_LIB_INT8 = CudaLibrary(SOURCE, _bind_int8, defines=("DECODE_ATTENTION_INT8",))
 build_library = _LIB.build     # (verbose=False) -> path of the built library
+build_int8_library = _LIB_INT8.build
 
 
 def window_positions(window, s: int) -> int:
@@ -153,11 +182,18 @@ def window_positions(window, s: int) -> int:
     return s if window is None or window >= s else int(window)
 
 
+_CACHE_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+_DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def check_contract(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                   length: torch.Tensor, window=None, attn_softcap: float = 0.0) -> None:
-    """The shapes both the kernel and its plain version take; raises on any
-    other.  (The plain version would compute any shape, but a caller that
-    passes the CPU tests must also run on the card.)"""
+                   length: torch.Tensor, window=None, attn_softcap: float = 0.0,
+                   k_scale=None, v_scale=None, dequant_dtype=torch.float32) -> None:
+    """The shapes and types both the kernel and its plain version take;
+    raises on any other.  (The plain version would compute any shape, but a
+    caller that passes the CPU tests must also run on the card.)  Caches are
+    both float32, both bfloat16, or both int8 with float32 ``k_scale`` and
+    ``v_scale`` (B, KV, S) and a ``dequant_dtype`` of float32 or bfloat16."""
     if q.dim() != 4 or k_cache.dim() != 4:
         raise ValueError(f"q must be (B, KV, GQ, dh) and caches (B, KV, S, dh); got "
                          f"{tuple(q.shape)} and {tuple(k_cache.shape)}")
@@ -178,48 +214,72 @@ def check_contract(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor
         raise ValueError(f"window must be None or a whole number >= 1, got {window!r}")
     if not 0.0 <= attn_softcap < float("inf"):
         raise ValueError(f"attn_softcap must be finite and >= 0, got {attn_softcap!r}")
+    if k_cache.dtype not in _CACHE_DTYPES or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"caches must both be float32, bfloat16 or int8, got "
+                        f"{k_cache.dtype} and {v_cache.dtype}")
+    int8 = k_cache.dtype == torch.int8
+    if int8 != (k_scale is not None) or int8 != (v_scale is not None):
+        raise TypeError("int8 caches take k_scale and v_scale, and other caches take neither")
+    if int8:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.shape != (b, kv, s) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 of shape {(b, kv, s)}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+        if dequant_dtype not in _DEQUANT_DTYPES:
+            raise TypeError(f"dequant_dtype must be float32 or bfloat16, got {dequant_dtype}")
 
 
 def decode_attention_cuda(
     q: torch.Tensor,        # (B, KV, GQ, dh) f32
-    k_cache: torch.Tensor,  # (B, KV, S, dh) f32 or bf16
+    k_cache: torch.Tensor,  # (B, KV, S, dh) f32, bf16 or int8
     v_cache: torch.Tensor,  # (B, KV, S, dh), k_cache's type
     length: torch.Tensor,   # (B,) int32, 1 <= length[b] <= S
     window=None,            # None = full attention
     attn_softcap: float = 0.0,
+    k_scale=None,           # (B, KV, S) f32, with int8 caches only
+    v_scale=None,
+    dequant_dtype=torch.float32,   # what an int8 value is rounded to after q * scale
 ) -> torch.Tensor:
     """Launch the kernel, once, on the current stream (no synchronisation);
     returns (B, KV, GQ, dh) f32.  Positions >= ``length[b]`` and below
-    ``length[b] - window`` are never read.  Allocates ``out`` and nothing
-    else once the workspace for this shape and stream is cached."""
+    ``length[b] - window`` are never read (nor their scales).  Allocates
+    ``out`` and nothing else once the workspace for this shape and stream
+    is cached."""
     global launches
-    check_contract(q, k_cache, v_cache, length, window, attn_softcap)
+    check_contract(q, k_cache, v_cache, length, window, attn_softcap, k_scale, v_scale,
+                   dequant_dtype)
     dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in (k_cache, v_cache, length)):
+    int8 = k_cache.dtype == torch.int8
+    tensors = (q, k_cache, v_cache, length) + ((k_scale, v_scale) if int8 else ())
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("decode_attention_cuda needs all tensors on one CUDA device")
     if q.dtype != torch.float32 or length.dtype != torch.int32:
         raise TypeError(f"decode_attention_cuda takes a float32 q and int32 lengths, got "
                         f"{q.dtype} and {length.dtype}")
-    if k_cache.dtype not in (torch.float32, torch.bfloat16) or v_cache.dtype != k_cache.dtype:
-        raise TypeError(f"caches must both be float32 or bfloat16, got "
-                        f"{k_cache.dtype} and {v_cache.dtype}")
-    if not all(t.is_contiguous() for t in (q, k_cache, v_cache, length)):
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_attention_cuda needs contiguous tensors")
     if any(t.data_ptr() % 16 for t in (k_cache, v_cache)):
         raise ValueError("the caches must start on a 16-byte boundary")
     b, kv, gq, dh = q.shape
     s = k_cache.shape[2]
-    lib = _LIB.get()
-    chunk = chunk_positions(s, dh, k_cache.element_size())
+    lib = _LIB_INT8.get() if int8 else _LIB.get()
+    chunk = chunk_positions(s, dh, tile_elem(k_cache.dtype))
     n_chunks = -(-s // chunk)
     stream = torch.cuda.current_stream(dev).cuda_stream
     part, counters = workspace(dev, stream, b, kv, gq, dh, n_chunks)
     out = torch.empty((b, kv, gq, dh), dtype=torch.float32, device=dev)
-    fn = lib.decode_attention_bf16 if k_cache.dtype == torch.bfloat16 else lib.decode_attention_f32
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(),
-             b, kv, s, gq, dh, chunk, n_chunks, window_positions(window, s), float(attn_softcap),
-             part.data_ptr(), counters.data_ptr(),
-             out.data_ptr(), stream)
+    shape = (b, kv, s, gq, dh, chunk, n_chunks, window_positions(window, s), float(attn_softcap))
+    tail = (part.data_ptr(), counters.data_ptr(), out.data_ptr(), stream)
+    if int8:
+        err = lib.decode_attention_int8(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), length.data_ptr(), *shape, int(dequant_dtype == torch.bfloat16),
+            *tail)
+    else:
+        fn = (lib.decode_attention_bf16 if k_cache.dtype == torch.bfloat16
+              else lib.decode_attention_f32)
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(),
+                 *shape, *tail)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
     launches += 1
@@ -228,13 +288,15 @@ def decode_attention_cuda(
 
 def decode_attention_dispatch(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, length: torch.Tensor,
-    window=None, attn_softcap: float = 0.0,
+    window=None, attn_softcap: float = 0.0, k_scale=None, v_scale=None,
+    dequant_dtype=torch.float32,
 ) -> torch.Tensor:
     """CPU tensors -> the plain version; CUDA tensors -> the kernel.  Both
-    take only the shapes :func:`check_contract` accepts."""
+    take only the shapes and types :func:`check_contract` accepts."""
+    args = (q, k_cache, v_cache, length, window, attn_softcap, k_scale, v_scale, dequant_dtype)
     if q.device.type == "cpu":
-        check_contract(q, k_cache, v_cache, length, window, attn_softcap)
-        return decode_attention_ref(q, k_cache, v_cache, length, window, attn_softcap)
+        check_contract(*args)
+        return decode_attention_ref(*args)
     if q.device.type == "cuda":
-        return decode_attention_cuda(q, k_cache, v_cache, length, window, attn_softcap)
+        return decode_attention_cuda(*args)
     raise ValueError(f"no decode_attention for device {q.device}")

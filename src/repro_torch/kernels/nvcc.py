@@ -3,7 +3,10 @@
 Every hand-written kernel of the port is one ``csrc/<name>.cu`` file with a
 plain C interface.  At first use it is compiled for ``sm_90a`` into a shared
 library under ``BUILD_DIR`` (git-ignored), named after the source and a hash
-of its bytes and flags, and loaded with :class:`ctypes.CDLL`.  Nothing here
+of its bytes and flags, and loaded with :class:`ctypes.CDLL`.  A source may
+be built more than once with other ``-D`` defines (the decode kernel's int8
+variant), so that its parts compile as separate nvcc processes side by
+side.  Nothing here
 runs at import time, so the package imports on machines without CUDA.
 """
 from __future__ import annotations
@@ -15,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "CudaLibrary"]
 
@@ -36,22 +39,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
-def build_library(source: Path, verbose: bool = False) -> Path:
-    """Compile ``source`` into ``BUILD_DIR`` unless a library built from the
-    same source bytes is already there; returns the library's path.  The
-    file name carries the source hash, and the build lands under a temporary
-    name first, so concurrent builders never load a half-written file."""
+def build_library(source: Path, verbose: bool = False, defines: Tuple[str, ...] = ()) -> Path:
+    """Compile ``source`` (with ``-D`` for each of ``defines``) into
+    ``BUILD_DIR`` unless a library built from the same source bytes and
+    flags is already there; returns the library's path.  The file name
+    carries the defines and a hash of source and flags, and the build lands
+    under a temporary name first, so concurrent builders never load a
+    half-written file."""
     source = Path(source)
     src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
+    name = "".join(f"_{d.lower()}" for d in defines)
+    out = BUILD_DIR / f"lib{source.stem}{name}_{tag}.so"
     if out.exists():
         return out
     compiler = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [compiler, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+    cmd = [compiler, *flags, *(("-Xptxas", "-v") if verbose else ()),
            "-o", tmp, str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -68,16 +75,19 @@ def build_library(source: Path, verbose: bool = False) -> Path:
 
 
 class CudaLibrary:
-    """One kernel source: built at first :meth:`get`, then loaded once and
-    given its ``argtypes``/``restype`` by ``bind``."""
+    """One kernel source, built with ``defines``: built at first
+    :meth:`get`, then loaded once and given its ``argtypes``/``restype``
+    by ``bind``."""
 
-    def __init__(self, source: Path, bind: Callable[[ctypes.CDLL], None]):
+    def __init__(self, source: Path, bind: Callable[[ctypes.CDLL], None],
+                 defines: Tuple[str, ...] = ()):
         self.source = Path(source)
         self._bind = bind
+        self.defines = tuple(defines)
         self._lib: Optional[ctypes.CDLL] = None
 
     def build(self, verbose: bool = False) -> Path:
-        return build_library(self.source, verbose)
+        return build_library(self.source, verbose, self.defines)
 
     def get(self) -> ctypes.CDLL:
         if self._lib is None:

@@ -109,18 +109,24 @@ def fused_masked_topk(
 
 def decode_attention(
     q: torch.Tensor,        # (B, KV, GQ, dh)
-    k_cache: torch.Tensor,  # (B, KV, S, dh) f32 or bf16
+    k_cache: torch.Tensor,  # (B, KV, S, dh) f32, bf16 or int8
     v_cache: torch.Tensor,  # (B, KV, S, dh)
     length: torch.Tensor,   # (B,) valid positions, 1 <= length[b] <= S
     window=None,            # attend to positions >= length - window; None = all
     attn_softcap: float = 0.0,
+    k_scale=None,           # (B, KV, S) f32, with int8 caches
+    v_scale=None,
+    dequant_dtype=torch.float32,
 ) -> torch.Tensor:
     """Flash-decode GQA attention; matches ``decode_attention_ref`` and
     returns (B, KV, GQ, dh) f32.  q is cast to f32; the caches are taken as
-    they are (f32 or bf16) and are not padded: the kernel reads each row's
-    positions ``length - window <= p < length`` and nothing else."""
+    they are (f32, bf16, or int8 with their scales, each value dequantized
+    to ``dequant_dtype``) and are not padded: the kernel reads each row's
+    positions ``length - window <= p < length`` and nothing else.  int8
+    calls count as ``decode_attention`` launches too."""
     t0 = time.perf_counter()
     out = decode_attention_dispatch(q.to(torch.float32).contiguous(), k_cache, v_cache,
-                                    length.to(torch.int32).contiguous(), window, attn_softcap)
+                                    length.to(torch.int32).contiguous(), window, attn_softcap,
+                                    k_scale, v_scale, dequant_dtype)
     record_dispatch("decode_attention", time.perf_counter() - t0)
     return out

@@ -55,6 +55,9 @@ def decode_attention_ref(
     length: torch.Tensor,   # (B,) valid KV length per sequence
     window=None,            # None (or >= S) = full attention
     attn_softcap: float = 0.0,
+    k_scale=None,           # (B, KV, S) f32 scales of int8 caches
+    v_scale=None,
+    dequant_dtype=torch.float32,
 ) -> torch.Tensor:
     """GQA decode attention over a (padded) KV cache; returns (B, KV, GQ, dh)
     f32.  The contract of the reference's ``decode_attention_xla``: scores
@@ -62,8 +65,13 @@ def decode_attention_ref(
     ``attn_softcap > 0``), then masked to the positions ``length - window <=
     p < length``, then softmax.  Computes in f32 whatever the cache type
     (bf16 is widened), as the kernel does; the reference oracle computes in
-    q's type, which the wrapper makes f32."""
+    q's type, which the wrapper makes f32.  int8 caches with scales are
+    dequantized first (q * scale in f32, then cast to ``dequant_dtype``), as
+    the reference's int8 decode does before its attention."""
     strict_fp32()
+    if k_scale is not None:
+        k_cache = (k_cache.float() * k_scale[..., None]).to(dequant_dtype)
+        v_cache = (v_cache.float() * v_scale[..., None]).to(dequant_dtype)
     q, k, v = q.float(), k_cache.float(), v_cache.float()
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bkgd,bksd->bkgs", q, k) * scale

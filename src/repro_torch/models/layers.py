@@ -15,7 +15,9 @@ Conventions as there:
   reference's ``decode_attention_xla`` with its window and softcap;
 * the MoE feed-forward (``moe_ffn``) is the reference's sort-based
   dispatch with per-sequence capacity, in plain PyTorch as the reference's
-  is XLA code.
+  is XLA code;
+* the int8 KV cache's per-vector quantisation (``quantize_kv``,
+  ``dequantize_kv``), bit for bit the reference's.
 
 Weights are parameter dictionaries keyed by the reference's names.  The
 reference keeps fp32 masters and casts them to the compute type before
@@ -33,7 +35,8 @@ from ..configs.base import ModelConfig
 from ..kernels.ref import lowest_id_topk
 
 __all__ = [
-    "NEG", "CHUNK", "rms_norm", "rope", "softcap", "flash_attention",
+    "NEG", "CHUNK", "rms_norm", "rope", "softcap", "quantize_kv", "dequantize_kv",
+    "flash_attention",
     "attn_init", "attn_qkv", "attn_out", "mlp_init", "mlp", "moe_init", "moe_ffn",
 ]
 
@@ -64,6 +67,22 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(x / cap) * cap if cap > 0 else x
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-vector symmetric int8 quantisation over the head dim, as the
+    reference's: x (..., dh) -> (int8 (..., dh), f32 scale (...)), scale =
+    max|x| / 127 floored at 1e-8; x / scale (a division, not a product with
+    the reciprocal) rounded half to even, as ``jnp.round``, and clipped to
+    +-127."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale[..., None]
 
 
 # ----------------------------------------------------------------------

@@ -1,8 +1,12 @@
-"""The serving language model, dense and MoE families, as an ``nn.Module``.
+"""The serving language model, every family but encdec and vlm, as an ``nn.Module``.
 
-Port of ``repro/models/model.py`` for ``family="dense"`` and ``"moe"``
-(qwen3-14b; gemma2-2b with its alternating sliding windows and softcaps;
-olmoe-1b-7b and llama4-scout with routed, and shared, experts):
+Port of ``repro/models/model.py`` for ``family="dense"``, ``"moe"``,
+``"hybrid"`` and ``"ssm"`` (qwen3-14b; gemma2-2b with its alternating
+sliding windows and softcaps; olmoe-1b-7b and llama4-scout with routed, and
+shared, experts; hymba-1.5b, attention and a Mamba head side by side in
+each layer, sliding windows but for its global layers; xlstm-1.3b, groups
+of one sLSTM and ``slstm_every - 1`` mLSTM blocks), with or without the int8
+KV cache:
 
     model = Model(cfg, device="cuda").init(torch.Generator("cuda").manual_seed(0))
     logits, aux = model.forward({"tokens": tokens})
@@ -11,7 +15,9 @@ olmoe-1b-7b and llama4-scout with routed, and shared, experts):
 
 Parameters keep the reference's names and shapes, one module per layer
 (``layers.<i>.attn.wq`` is row i of the reference's stacked
-``params["layers"]["attn"]["wq"]``), and the layer scan is a Python loop.
+``params["layers"]["attn"]["wq"]``; xLSTM's ``blocks.<g>.mlstm.<j>.wq`` is
+``params["blocks"]["mlstm"]["wq"][g, j]``), and the layer scans are Python
+loops.
 
 Differences from the reference, each giving the same numbers:
 
@@ -19,17 +25,20 @@ Differences from the reference, each giving the same numbers:
   fp32 masters and casts them to ``cfg.dtype`` before every use (its
   ``_embed``, ``_logits``, ``attn_qkv``, ``attn_out``, ``mlp``, ``rms_norm``),
   so storing the cast values gives the same products at half the memory in
-  bf16.
-* The KV cache is (L, B, KV, S, dh) in ``cfg.dtype``, as the reference's.
-  ``decode_step`` writes the new position of each row into it in place, at
-  that row's ``lengths``, and returns the same tensors; the reference
-  returns a new cache.
+  bf16.  The recurrences' weights that the reference uses uncast
+  (``ssm.MAMBA_FP32``, ``ssm.SLSTM_FP32``) stay fp32.
+* The KV cache is (L, B, KV, S, dh) in ``cfg.dtype``, as the reference's;
+  with ``kv_cache_int8`` it is int8 with fp32 ``k_scale``/``v_scale``
+  (L, B, KV, S), and the decode kernel dequantizes in registers where the
+  reference dequantizes the whole cache each step.  ``decode_step`` writes
+  the new position of each row into it in place, at that row's
+  ``lengths``, and the recurrent states (``ssm_h``/``ssm_conv``, ``slstm``,
+  ``mlstm``) likewise; it returns the same tensors, the reference a new
+  cache.
 * The layer windows are a Python list (``_windows``), not a scanned array.
 
-Configurations that need what the port has not ported raise
-``NotImplementedError`` at construction, never mis-serve: other families
-(ssm, hybrid, encdec, vlm), the ``"hymba"`` layer pattern, the int8 KV
-cache.
+The encdec and vlm families raise ``NotImplementedError`` at
+construction, never mis-serve.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.ops import decode_attention
+from . import ssm
 from .layers import (
     attn_init,
     attn_out,
@@ -50,11 +60,13 @@ from .layers import (
     mlp_init,
     moe_ffn,
     moe_init,
+    quantize_kv,
     rms_norm,
     softcap,
 )
 
-__all__ = ["Model", "DecoderLayer", "Params", "check_supported", "GLOBAL_WINDOW"]
+__all__ = ["Model", "DecoderLayer", "XlstmGroup", "Params", "check_supported",
+           "GLOBAL_WINDOW"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _LATER = "ROADMAP Queue 1 item 13"
@@ -63,24 +75,23 @@ GLOBAL_WINDOW = 2_000_000_000  # "window" value meaning full attention
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot serve yet."""
-    missing = []
-    if cfg.family not in ("dense", "moe"):
-        missing.append(f"family {cfg.family!r}")
-    if cfg.layer_pattern == "hymba":
-        missing.append("the 'hymba' layer pattern")
-    if cfg.kv_cache_int8:
-        missing.append("the int8 KV cache")
-    if missing:
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch yet ({_LATER})")
+            f"{cfg.name}: family {cfg.family!r} not ported to repro_torch yet ({_LATER})")
+    if cfg.family == "ssm" and cfg.n_layers % max(cfg.slstm_every, 1):
+        raise ValueError(f"{cfg.name}: the ssm family needs n_layers % slstm_every == 0")
 
 
 def _windows(cfg: ModelConfig, n_layers: int) -> List[int]:
     """Per-layer attention window (GLOBAL_WINDOW = full attention): gemma2's
-    ``"local_global"`` pattern puts ``sliding_window`` on the even layers; a
+    ``"local_global"`` pattern puts ``sliding_window`` on the even layers,
+    hymba's ``"hymba"`` pattern on every layer outside ``global_layers``; a
     ``"global"`` pattern ignores ``sliding_window``, as the reference does."""
     if cfg.layer_pattern == "local_global":
         return [cfg.sliding_window if i % 2 == 0 else GLOBAL_WINDOW for i in range(n_layers)]
+    if cfg.layer_pattern == "hymba":
+        return [GLOBAL_WINDOW if i in cfg.global_layers else cfg.sliding_window
+                for i in range(n_layers)]
     return [GLOBAL_WINDOW] * n_layers
 
 
@@ -90,12 +101,16 @@ def _zeros(shape, device, dtype) -> nn.Parameter:
 
 class Params(nn.Module):
     """Named weights read as ``p[name]``, like the reference's dicts; a
-    nested dict (the MoE layer's ``shared`` expert) is a submodule."""
+    nested dict (the MoE layer's ``shared`` expert) is a submodule.  Names
+    in ``fp32`` are stored in fp32 whatever ``dtype`` is; ``spec`` (name ->
+    (shape, scale)) says how ``Model.init`` draws them."""
 
-    def __init__(self, spec: Dict, device, dtype):
+    def __init__(self, spec: Dict, device, dtype, fp32=()):
         super().__init__()
+        self.spec = spec
         for name, (shape, _) in spec.items():
-            self.register_parameter(name, _zeros(shape, device, dtype))
+            self.register_parameter(
+                name, _zeros(shape, device, torch.float32 if name in fp32 else dtype))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -109,7 +124,7 @@ class DecoderLayer(nn.Module):
     """One decoder layer's weights: ``ln1``, ``ln2``, ``attn``, ``ffn`` (and
     ``ln1b``/``ln2b`` with post-norms).  An MoE layer's ``ffn`` holds the
     router and the experts' (E, ...) weights, and ``ffn.shared`` with a
-    shared expert."""
+    shared expert; a hybrid layer adds the Mamba head ``mamba``."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -123,9 +138,26 @@ class DecoderLayer(nn.Module):
                 self.ffn.shared = Params(mlp_init(d, cfg.d_ff), device, dtype)
         else:
             self.ffn = Params(mlp_init(d, cfg.d_ff), device, dtype)
+        if cfg.family == "hybrid":
+            self.mamba = Params(ssm.mamba_init(cfg), device, dtype, ssm.MAMBA_FP32)
         if cfg.post_norms:
             self.ln1b = _vector(d, device, dtype)
             self.ln2b = _vector(d, device, dtype)
+
+
+class XlstmGroup(nn.Module):
+    """One xLSTM group: an sLSTM block (``slstm``, ``slstm_ln``) and
+    ``slstm_every - 1`` mLSTM blocks (``mlstm.<j>``, and their norm scales
+    stacked in ``mlstm_ln`` (every - 1, D), as the reference stacks them)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        every = max(cfg.slstm_every, 1)
+        self.slstm = Params(ssm.slstm_init(cfg), device, dtype, ssm.SLSTM_FP32)
+        self.slstm_ln = _vector(cfg.d_model, device, dtype)
+        self.mlstm = nn.ModuleList(Params(ssm.mlstm_init(cfg), device, dtype)
+                                   for _ in range(every - 1))
+        self.mlstm_ln = _zeros((every - 1, cfg.d_model), device, dtype)
 
 
 class Model(nn.Module):
@@ -144,8 +176,13 @@ class Model(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.zeros((cfg.d_model, cfg.vocab_size), device=dev, dtype=dt),
                 requires_grad=False)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, dev, dt) for _ in range(cfg.n_layers))
-        self.windows = _windows(cfg, cfg.n_layers)
+        if cfg.family == "ssm":
+            n_groups = cfg.n_layers // max(cfg.slstm_every, 1)
+            self.blocks = nn.ModuleList(XlstmGroup(cfg, dev, dt) for _ in range(n_groups))
+            self.windows: List[int] = []
+        else:
+            self.layers = nn.ModuleList(DecoderLayer(cfg, dev, dt) for _ in range(cfg.n_layers))
+            self.windows = _windows(cfg, cfg.n_layers)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -153,25 +190,27 @@ class Model(nn.Module):
         """Random weights with the reference's shapes and scales: N(0, 1)
         drawn in fp32 one tensor at a time on the device, scaled, and cast
         into the stored type (at most one fp32 tensor exists at a time; the
-        largest, qwen3-14b's embedding, is 3.1 GB).  Norm scales are zeros.
-        The draws come from ``generator``, not ``jax.random``: the tests
-        carry the reference's weights instead (``carry``)."""
+        largest, qwen3-14b's embedding, is 3.1 GB).  Norm scales are zeros;
+        Mamba's ``a_log``, ``d_skip`` and ``dt_bias`` take the reference's
+        set values.  The draws come from ``generator``, not ``jax.random``:
+        the tests carry the reference's weights instead (``carry``)."""
         cfg = self.cfg
         draws = [(self.embed, cfg.d_model ** -0.5)]
         if not cfg.tie_embeddings:
             draws.append((self.lm_head, cfg.d_model ** -0.5))
-        ffn_spec = moe_init(cfg) if cfg.is_moe else mlp_init(cfg.d_model, cfg.d_ff)
-        for layer in self.layers:
-            parts = [(layer.attn, attn_init(cfg)), (layer.ffn, ffn_spec)]
-            if cfg.is_moe and cfg.moe_shared_expert:
-                parts.append((layer.ffn.shared, mlp_init(cfg.d_model, cfg.d_ff)))
-            for pd, spec in parts:
-                draws += [(pd[name], scale) for name, (_, scale) in spec.items() if scale]
+        for pd in self.modules():
+            if isinstance(pd, Params):
+                draws += [(pd[name], scale) for name, (_, scale) in pd.spec.items() if scale]
         for p in self.parameters():
             p.zero_()
         for p, scale in draws:
             p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
                                 dtype=torch.float32).mul_(scale))
+        if cfg.family == "hybrid":
+            const = ssm.mamba_constants(cfg, self.device)
+            for layer in self.layers:
+                for name, val in const.items():
+                    layer.mamba[name].copy_(val)
         return self
 
     # ==================================================================
@@ -204,6 +243,13 @@ class Model(nn.Module):
             o = rms_norm(o, lp.ln1b, cfg.norm_eps)
         return x + o, k, v
 
+    def _mamba_block(self, lp: DecoderLayer, x: torch.Tensor, state=None):
+        """A hybrid layer's Mamba head on the post-attention residual, which
+        re-uses the layer's ``ln1``; returns (x + its output, its state)."""
+        h = rms_norm(x, lp.ln1, self.cfg.norm_eps)
+        m_out, st = ssm.mamba_seq(lp.mamba, h, self.cfg, state)
+        return x + m_out, st
+
     def _ffn_block(self, lp: DecoderLayer, x: torch.Tensor, aux=0.0):
         """Feed-forward sub-block with residual; returns (x, aux + the MoE
         layer's load-balance loss)."""
@@ -218,12 +264,41 @@ class Model(nn.Module):
             f = rms_norm(f, lp.ln2b, cfg.norm_eps)
         return x + f, aux
 
+    def _xlstm(self, x: torch.Tensor, cache=None, step: bool = False) -> torch.Tensor:
+        """The xLSTM groups over x (B, S, D).  Sequence forms from a zero
+        state (``step`` False), their final states written into ``cache``
+        when one is given; or one token (S = 1) through the step forms from
+        ``cache``'s states, updated in place (``step`` True)."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        for gi, grp in enumerate(self.blocks):
+            blocks = [(ssm.slstm_seq, ssm.slstm_step, grp.slstm, grp.slstm_ln, "slstm", gi)]
+            blocks += [(ssm.mlstm_seq, ssm.mlstm_step, mp, grp.mlstm_ln[j], "mlstm", (gi, j))
+                       for j, mp in enumerate(grp.mlstm)]
+            for seq_fn, step_fn, p, ln, key, at in blocks:
+                h = rms_norm(x, ln, eps)
+                if step:
+                    st = {k: t[at] for k, t in cache[key].items()}
+                    y, new = step_fn(p, h[:, 0], cfg, st)
+                    y = y[:, None]
+                else:
+                    y, new = seq_fn(p, h, cfg)
+                if cache is not None:
+                    for k, t in cache[key].items():
+                        t[at] = new[k]
+                x = x + y
+        return x
+
     def _decoder_forward(self, x: torch.Tensor, positions: torch.Tensor):
         """The decoder layers over embeddings x (B, S, D); returns (x, aux),
-        aux the sum of the MoE layers' load-balance losses (0.0 when dense)."""
+        aux the sum of the MoE layers' load-balance losses (0.0 otherwise)."""
+        if self.cfg.family == "ssm":
+            return self._xlstm(x), 0.0
         aux = 0.0
         for lp, w in zip(self.layers, self.windows):
             x, _, _ = self._attn_block(lp, x, w, positions)
+            if self.cfg.family == "hybrid":
+                x, _ = self._mamba_block(lp, x)
             x, aux = self._ffn_block(lp, x, aux)
         return x, aux
 
@@ -240,28 +315,56 @@ class Model(nn.Module):
     @torch.no_grad()
     def forward(self, batch: Dict) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
         """Teacher-forced logits over the token positions.  Returns
-        (logits (B,S,V) fp32, aux_loss): 0.0 for the dense family, a 0-d
-        fp32 tensor with MoE."""
+        (logits (B,S,V) fp32, aux_loss): 0.0 without MoE, a 0-d fp32 tensor
+        with MoE."""
         x, aux = self._hidden(batch)
         return self._logits(x), aux
 
     # ==================================================================
     # serving: cache init / prefill / decode
     # ==================================================================
-    def init_cache(self, b: int, max_len: int) -> Dict[str, torch.Tensor]:
+    def init_cache(self, b: int, max_len: int) -> Dict:
+        """The reference's cache layout: K/V (L, B, KV, S, dh) in
+        ``cfg.dtype``, or int8 with fp32 ``k_scale``/``v_scale`` (L, B, KV,
+        S); a hybrid model's Mamba states ``ssm_h`` (L, B, Di, N) and
+        ``ssm_conv`` (L, B, K-1, Di); an xLSTM's ``slstm`` (G, B, H, dh) and
+        ``mlstm`` (G, every-1, B, ...) state dicts, each ``m`` at -1e30.
+        Recurrent states are fp32."""
         cfg = self.cfg
-        shape = (cfg.n_layers, b, cfg.n_kv_heads, max_len, cfg.dh)
-        return {"k": torch.zeros(shape, device=self.device, dtype=self.dtype),
-                "v": torch.zeros(shape, device=self.device, dtype=self.dtype)}
+        dev = self.device
+        f32 = dict(device=dev, dtype=torch.float32)
+        cache: Dict = {}
+        if cfg.family != "ssm":
+            shape = (cfg.n_layers, b, cfg.n_kv_heads, max_len, cfg.dh)
+            cdt = torch.int8 if cfg.kv_cache_int8 else self.dtype
+            cache["k"] = torch.zeros(shape, device=dev, dtype=cdt)
+            cache["v"] = torch.zeros(shape, device=dev, dtype=cdt)
+            if cfg.kv_cache_int8:
+                # per-(position, head) scales: 4 / dh bytes a cached byte
+                cache["k_scale"] = torch.zeros(shape[:-1], **f32)
+                cache["v_scale"] = torch.zeros(shape[:-1], **f32)
+        if cfg.family == "hybrid":
+            st = ssm.mamba_state(b, cfg, dev)
+            cache["ssm_h"] = torch.zeros((cfg.n_layers,) + st["h"].shape, **f32)
+            cache["ssm_conv"] = torch.zeros((cfg.n_layers,) + st["conv"].shape, **f32)
+        if cfg.family == "ssm":
+            g, every = len(self.blocks), max(cfg.slstm_every, 1)
+            cache["slstm"] = {k: t.expand((g,) + t.shape).contiguous()
+                              for k, t in ssm.slstm_state(b, cfg, dev).items()}
+            cache["mlstm"] = {k: t.expand((g, every - 1) + t.shape).contiguous()
+                              for k, t in ssm.mlstm_state(b, cfg, dev).items()}
+        return cache
 
     @property
     def supports_ragged_prefill(self) -> bool:
-        """Unequal-length prompt batching is exact for attention families:
-        causal masking isolates each row's last real position from its pad
-        tail (the reference's flag; every family the port serves has it).
-        With MoE, as in the reference, the batch's padded length sets each
-        row's expert capacity, so a row may drop other tokens in a batch
-        than alone unless the capacity factor leaves room for all."""
+        """Whether unequal-length prompt batching is exact (the reference's
+        flag).  Attention families: causal masking isolates each row's last
+        real position from its pad tail.  With MoE, as in the reference, the
+        batch's padded length sets each row's expert capacity, so a row may
+        drop other tokens in a batch than alone unless the capacity factor
+        leaves room for all.  Recurrent families (ssm, hybrid) fold pad
+        steps into their carried state: ``ServeEngine`` serves them
+        equal-length batches only."""
         return self.cfg.family not in ("ssm", "hybrid")
 
     @staticmethod
@@ -274,31 +377,43 @@ class Model(nn.Module):
         return x[torch.arange(x.shape[0], device=x.device), pos][:, None, :]
 
     @torch.no_grad()
-    def prefill(self, batch: Dict, max_len: int, lengths=None
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def prefill(self, batch: Dict, max_len: int, lengths=None) -> Tuple[torch.Tensor, Dict]:
         """Run the prompt through the model, returning (last-token logits
         (B, V) fp32, populated cache).  With ``lengths`` (B,) each row's
         logits come from its own last position; K/V of a short row's pad
-        tail are written too, beyond the length mask decode applies."""
+        tail are written too, beyond the length mask decode applies.  With
+        the int8 cache each layer's K/V are quantised into it, while the
+        layer's own attention runs on the unquantised K/V, as the
+        reference's."""
+        cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
         b, s = tokens.shape
         if s > max_len:
             raise ValueError(f"prompt length {s} exceeds the cache's max_len {max_len}")
         cache = self.init_cache(b, max_len)
         x = self._embed(tokens)
-        positions = torch.arange(s, device=self.device)[None, :]
-        for i, (lp, w) in enumerate(zip(self.layers, self.windows)):
-            x, k, v = self._attn_block(lp, x, w, positions)
-            cache["k"][i, :, :, :s] = k.transpose(1, 2)     # (B, KV, S, dh)
-            cache["v"][i, :, :, :s] = v.transpose(1, 2)
-            x, _ = self._ffn_block(lp, x)
+        if cfg.family == "ssm":
+            x = self._xlstm(x, cache)
+        else:
+            positions = torch.arange(s, device=self.device)[None, :]
+            for i, (lp, w) in enumerate(zip(self.layers, self.windows)):
+                x, k, v = self._attn_block(lp, x, w, positions)
+                for name, t in (("k", k), ("v", v)):
+                    t = t.transpose(1, 2)                   # (B, KV, S, dh)
+                    if cfg.kv_cache_int8:
+                        t, scale = quantize_kv(t)
+                        cache[f"{name}_scale"][i, :, :, :s] = scale
+                    cache[name][i, :, :, :s] = t
+                if cfg.family == "hybrid":
+                    x, st = self._mamba_block(lp, x)
+                    cache["ssm_h"][i], cache["ssm_conv"][i] = st["h"], st["conv"]
+                x, _ = self._ffn_block(lp, x)
         if lengths is not None:
             lengths = torch.as_tensor(lengths, device=self.device)
         return self._logits(self._last_hidden(x, lengths))[:, 0], cache
 
     @torch.no_grad()
-    def decode_step(self, cache: Dict[str, torch.Tensor], tokens, lengths
-                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def decode_step(self, cache: Dict, tokens, lengths) -> Tuple[torch.Tensor, Dict]:
         """One decode step.  tokens: (B,); lengths: (B,) current cache fill
         (the new token's k/v are written at ``lengths``, so every
         ``lengths[b]`` must be < the cache's max_len).  Returns (logits (B,V)
@@ -306,24 +421,40 @@ class Model(nn.Module):
         cfg = self.cfg
         tokens = self._tokens(tokens)
         lengths = torch.as_tensor(lengths, device=self.device).long()
+        x = self._embed(tokens[:, None])                    # (B, 1, D)
+        if cfg.family == "ssm":
+            return self._logits(self._xlstm(x, cache, step=True))[:, 0], cache
         b = tokens.shape[0]
         kvh, g, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.dh
         rows = torch.arange(b, device=self.device)
-        x = self._embed(tokens[:, None])                    # (B, 1, D)
         positions = lengths[:, None]
+        int8 = cfg.kv_cache_int8
         for i, (lp, w) in enumerate(zip(self.layers, self.windows)):
             h = rms_norm(x, lp.ln1, cfg.norm_eps)
             q, k, v = attn_qkv(lp.attn, h, cfg, positions)
             kc, vc = cache["k"][i], cache["v"][i]           # (B, KV, S, dh) views
+            scales = {}
+            if int8:
+                scales = dict(k_scale=cache["k_scale"][i], v_scale=cache["v_scale"][i],
+                              dequant_dtype=x.dtype)
+                (kq, ks), (vq, vs) = quantize_kv(k[:, 0]), quantize_kv(v[:, 0])
+                scales["k_scale"][rows, :, lengths] = ks
+                scales["v_scale"][rows, :, lengths] = vs
+                k, v = kq[:, None], vq[:, None]
             # advanced indices around a slice: the indexed view is (B, KV, dh)
             kc[rows, :, lengths, :] = k[:, 0]
             vc[rows, :, lengths, :] = v[:, 0]
             # f32 out of the kernel, back to the compute type as the
             # reference's decode_attention_xla returns q's type
             o = decode_attention(q[:, 0], kc, vc, lengths + 1, window=w,
-                                 attn_softcap=cfg.attn_softcap).to(x.dtype)
+                                 attn_softcap=cfg.attn_softcap, **scales).to(x.dtype)
             o = attn_out(lp.attn, o.reshape(b, 1, kvh, g, dh), cfg)
             if cfg.post_norms:
                 o = rms_norm(o, lp.ln1b, cfg.norm_eps)
-            x, _ = self._ffn_block(lp, x + o)
+            x = x + o
+            if cfg.family == "hybrid":
+                st = {"h": cache["ssm_h"][i], "conv": cache["ssm_conv"][i]}
+                x, st = self._mamba_block(lp, x, st)
+                cache["ssm_h"][i], cache["ssm_conv"][i] = st["h"], st["conv"]
+            x, _ = self._ffn_block(lp, x)
         return self._logits(x)[:, 0], cache

@@ -368,3 +368,10 @@ def test_workspace_sized_by_rule_and_cached():
     assert again[0] is part and again[1] is counters
     other_stream = workspace(dev, 1, b, kv, gq, dh, nc)
     assert other_stream[0] is not part
+
+
+def test_workspace_pads_m_and_l_to_float4():
+    """hymba's 5 kv heads x 5 query heads at B = 1 over 17 chunks: 425 rows
+    of m and of l, each padded to 428, so acc starts 16-byte aligned."""
+    n_part, _ = workspace_numel(1, 5, 5, 64, 17)
+    assert n_part == 2 * 428 + 425 * 64 and (2 * 428) % 4 == 0

@@ -65,7 +65,7 @@ def test_explain_prints_one_tree_per_sample():
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "olmoe-1b-7b", "llama4-scout-17b-a16e",
-                                  "qwen3-14b"])
+                                  "qwen3-14b", "hymba-1.5b", "xlstm-1.3b"])
 def test_lm_mode_serves_every_request(arch):
     results, text = _quiet(serve.main, ["--mode", "lm", "--device", "cpu", "--arch", arch,
                                         "--requests", "5", "--new-tokens", "6",

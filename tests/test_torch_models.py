@@ -8,9 +8,11 @@ within each row's length, and four successive ``decode_step`` logits (the
 port's decode attention runs its kernel's plain version here).  Tolerance
 rtol = atol = 1e-4: fp32 throughout, only the order of sums differs.
 
-Configurations the port does not serve raise ``NotImplementedError``;
-the features served since (softcap, windows, MoE) are held to the
-reference where they used to be refused.
+Configurations the port does not serve (the encdec and vlm families)
+raise ``NotImplementedError``; the families and features served since
+(softcap, windows, MoE, the hybrid and ssm families, the hymba layer
+pattern, the int8 KV cache) are held to the reference where they used to
+be refused.
 """
 import dataclasses
 
@@ -148,7 +150,8 @@ def _port_cfg(ref_cfg) -> ModelConfig:
 
 def _forward_parity(ref_cfg, cfg, seq: int = 12):
     """forward logits (and aux) of both packages with the reference's
-    weights carried, fp32."""
+    weights carried, fp32; with the int8 KV cache also the prefill's
+    last-token logits (its attention runs on the unquantised K/V)."""
     ref_cfg = dataclasses.replace(ref_cfg, dtype="float32")
     cfg = dataclasses.replace(cfg, dtype="float32")
     ref = RefModel(ref_cfg)
@@ -159,15 +162,21 @@ def _forward_parity(ref_cfg, cfg, seq: int = 12):
     p, p_aux = port.forward({"tokens": torch.as_tensor(toks)})
     np.testing.assert_allclose(p.numpy(), np.asarray(r), **TOL)
     np.testing.assert_allclose(float(p_aux), float(r_aux), **TOL)
+    if cfg.kv_cache_int8:
+        r_logits, r_cache = ref.prefill(params, {"tokens": jnp.asarray(toks)}, seq + 4)
+        p_logits, p_cache = port.prefill({"tokens": torch.as_tensor(toks)}, seq + 4)
+        assert p_cache["k"].dtype == torch.int8 and r_cache["k"].dtype == jnp.int8
+        np.testing.assert_allclose(p_logits.numpy(), np.asarray(r_logits), **TOL)
 
 
 @pytest.mark.parametrize("name", sorted(n for n, c in REF_REGISTRY.items()
                                         if c.family != "dense" or c.is_moe))
 def test_other_families_are_refused(name):
-    """Families the port does not serve (ssm, hybrid, encdec, vlm) raise;
-    the MoE family, served since the MoE port, is held to the reference."""
+    """Families the port does not serve (encdec, vlm) raise; the MoE,
+    hybrid and ssm families, served since their ports, are held to the
+    reference."""
     ref_cfg = REF_REGISTRY[name].reduced()
-    if ref_cfg.family == "moe":
+    if ref_cfg.family in ("moe", "hybrid", "ssm"):
         _forward_parity(ref_cfg, get_config(name).reduced())
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -183,15 +192,12 @@ def test_other_families_are_refused(name):
     dict(layer_pattern="hymba", sliding_window=8, global_layers=(0,)),
 ])
 def test_unported_features_are_refused(change):
-    """The int8 KV cache and the hymba layer pattern raise; the softcap, the
-    windows (a "global" pattern ignores sliding_window) and MoE, served
-    since their port, are held to the reference on qwen3's reduced shapes
-    (a window of 64 bites at 80 tokens)."""
+    """Every feature here is served since its port and held to the
+    reference on qwen3's reduced shapes: the softcap, the windows (a
+    "global" pattern ignores sliding_window; a window of 64 bites at 80
+    tokens), MoE, the int8 KV cache and the hymba layer pattern (layer 0
+    global, layer 1 a window of 8)."""
     cfg = dataclasses.replace(get_config("qwen3-14b").reduced(), **change)
-    if change.get("kv_cache_int8") or change.get("layer_pattern") == "hymba":
-        with pytest.raises(NotImplementedError):
-            Model(cfg, device="cpu")
-        return
     _forward_parity(dataclasses.replace(ref_get_config("qwen3-14b").reduced(), **change), cfg,
                     seq=80)
 
