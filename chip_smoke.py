@@ -44,6 +44,12 @@ Phases, each printed as it runs:
      query / batch_query -> ground_truth; then 256 queries under one shared
      predicate through the exact executors in one call, each row equal to
      its query alone;
+  3e. on phase 4's engine: 256 of its queries, each under its own mask on
+     the rows the pre executor scans, alone (streaming path) equal to the
+     same row in a batch of 64 (tiled path), ids and distances bitwise; and
+     l2_topk (a clean engine's ground_truth) against the kernel's rows, the
+     ranks the two order otherwise printed with their distances (up to
+     ties);
   4b. DNF: 64 Ors of 2-3 of phase 4's served predicates (overlapping, one
      with a repeated term, one a permutation of another) through query()
      and through batch_query() mixed with conjunctions, on the phase-4
@@ -155,11 +161,21 @@ Phases, each printed as it runs:
      group) on 4 of 600 (no multiple of the 256-step chunk), equal-length
      batches; qwen3-14b at depth 4 with the int8 cache, batch = solo only
      (teacher forcing never reads the quantised cache);
+  10. training (after every earlier model and engine is freed): 10a
+     gemma2-2b at full width, 2 layers, fp32: Model.loss's ce equals the
+     full-logits CE, and grad_accum 2 equals 1 (loss, first moments); 10b
+     gemma2-2b at full width and depth, bf16 compute over fp32 masters, 12
+     AdamW steps on TokenPipeline batches of 8 x 1,024 tokens: finite
+     losses and grad norms, the loss falling, neither kernel launched; the
+     median step beside its bound, tokens/s, peak memory, the profiler's
+     idle share and CUDA kernels a step, the forward and optimizer shares;
   9. the serve CLI in-process (repro_torch.launch.serve.main): ann-trace
      over 200,000 rows with 4 shards and the recall probe (the snapshot has
      the reference CLI's keys, masked_l2_topk launched), then --mode lm for
      gemma2-2b, olmoe-1b-7b, hymba-1.5b and xlstm-1.3b (every request its
-     tokens);
+     tokens); then the train CLI (repro_torch.launch.train.main, hymba-1.5b
+     reduced, 8 steps, a checkpoint every 4): 8 losses, then a clean resume
+     on the same directory;
   5. one JSON line listing every kernel, then the card line, then the
      result line {"ok": true, "device": {...}}.
 
@@ -180,6 +196,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -605,6 +622,78 @@ def shared_predicate_batch(eng, q_all, preds, k: int, n: int = 256) -> dict:
                   f"{solo_s / batch_s:.1f}x; every row equals its query alone (ids, bitwise) and "
                   f"ground truth up to ties", flush=True)
     return out
+
+
+def real_row_independence(mp: dict, k: int = 10, n: int = 256, batch: int = 64) -> dict:
+    """Phase 3e, on real data: n of phase 4's queries (its 200 served ones,
+    then its training ones) on the arxiv corpus, each under its own
+    predicate's mask and on the rows the pre executor hands the kernel (the
+    full corpus under the mask above FULL_SCAN_FRAC passing, else the
+    gathered passing rows): the row alone (B=1, the streaming path) equals
+    the same row inside a batch of 64 under that mask (the tiled path),
+    ids and distances bitwise.  Beside it, not gated: the clean engine's
+    ground_truth (l2_topk, a GEMM and torch.topk) against the kernel's row,
+    the ranks where the two order rows differently and every such row's
+    distance under both and in fp64 (the two must agree up to ties)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.index.flat import l2_topk
+    from repro_torch.kernels import masked_l2
+    from repro_torch.kernels.ops import fused_masked_topk
+
+    t0 = time.perf_counter()
+    eng = mp["engine"]
+    qt, pt = mp["train"]
+    qs = np.concatenate([mp["qs"], qt])[:n]
+    ps = (list(mp["preds"]) + list(pt))[:n]
+    vd = eng.vectors_dev
+    n_sms = torch.cuda.get_device_properties(vd.device).multi_processor_count
+    q_dev = torch.as_tensor(qs, device=vd.device)
+    paths, n_swapped, reports = {}, 0, []
+    for i in range(len(qs)):
+        mask = ps[i].eval(eng.cat, eng.num)
+        m = torch.as_tensor(mask, device=vd.device)
+        n_pass = int(mask.sum())
+        if n_pass > eng.pre_exec.FULL_SCAN_FRAC * len(mask):
+            rows, sub, sub_mask = None, vd, m
+        else:
+            rows = torch.nonzero(m).squeeze(1)
+            sub, sub_mask = vd[rows], torch.ones(n_pass, dtype=torch.bool, device=vd.device)
+        pos = i % batch
+        others = [j for j in range(len(qs)) if j != i][:batch - 1]
+        qb = torch.cat([q_dev[others[:pos]], q_dev[i:i + 1], q_dev[others[pos:]]])
+        kk = min(k, n_pass)
+        bd, bi = fused_masked_topk(qb, sub, sub_mask, kk)
+        sd, si = fused_masked_topk(q_dev[i:i + 1], sub, sub_mask, kk)
+        plan = (masked_l2.plan(1, sub.shape[0], vd.shape[1], kk, n_sms).path,
+                masked_l2.plan(batch, sub.shape[0], vd.shape[1], kk, n_sms).path)
+        paths[plan] = paths.get(plan, 0) + 1
+        check(torch.equal(sd[0], bd[pos]) and torch.equal(si[0], bi[pos]),
+              f"query {i} ({n_pass} rows pass): alone ({plan[0]}) {si[0].tolist()} "
+              f"{sd[0].tolist()} differs from row {pos} of a batch of {batch} ({plan[1]}) "
+              f"{bi[pos].tolist()} {bd[pos].tolist()}")
+        ids = si if rows is None else torch.where(si >= 0, rows[si.clamp_min(0).long()], -1)
+        kd, ki = sd.cpu().numpy(), ids.cpu().numpy().astype(np.int32)
+        td, ti = (t.cpu().numpy() for t in l2_topk(q_dev[i:i + 1], vd, kk, m))
+        check(same_up_to_ties(qs[i], ki, kd, ti, td),
+              f"query {i}: the kernel's row {ki} {kd} and l2_topk's {ti} {td} differ beyond ties")
+        if not np.array_equal(ki, ti):
+            n_swapped += 1
+            if len(reports) < 8:
+                reports.append(f"query {i} ({n_pass} rows pass): " + rank_diff(
+                    eng, qs[i], {"kernel": (kd, ki), "l2_topk": (td, ti)}))
+    secs = time.perf_counter() - t0
+    print(f"[kernel-real] {len(qs)} of phase 4's queries under their own masks on arxiv "
+          f"{tuple(vd.shape)}: the row alone equals its row in a batch of {batch}, ids and "
+          f"distances bitwise (B=1 path, B={batch} path: "
+          + ", ".join(f"{a}/{b} {c}" for (a, b), c in sorted(paths.items()))
+          + f"); l2_topk (the clean engine's ground_truth) orders the top-{k} otherwise than "
+          f"the kernel for {n_swapped} of {len(qs)} queries, all within ties; {secs:.1f} s",
+          flush=True)
+    for line in reports:
+        print(f"[kernel-real] {line}", flush=True)
+    return {"paths": paths, "l2_topk_order_differs": n_swapped, "seconds": secs}
 
 
 def where_time_goes(eng, qs, ps, served, k: int, n: int = 40) -> None:
@@ -1073,10 +1162,67 @@ def live_truth(eng, q, pred, k: int):
     return d, i
 
 
+def kernel_truth(eng, q, pred, k: int):
+    """(dists, ids) (1, k) of the pre-filter path at B=1, the arithmetic
+    exact plans serve with (the masked_l2_topk kernel): on a mutated
+    corpus the live ground_truth's own path, on a clean one the pre
+    executor (a clean engine's ground_truth is l2_topk, a GEMM and
+    torch.topk, which rounds other than the kernel)."""
+    import numpy as np
+
+    from repro_torch.core.engine import PRE_FILTER, _execute_grouped
+
+    q = np.atleast_2d(np.asarray(q, np.float32))
+    if not eng.live.dirty:
+        res = eng.pre_exec.search(q, pred, k)
+        return res.dists, res.ids
+    d, ids, _ = _execute_grouped(eng.pre_exec, None, eng.post_exec, q, [pred], k,
+                                 np.full(1, PRE_FILTER), np.zeros(1), live=eng.live)
+    return d, ids
+
+
+def row_vectors(eng, ids):
+    """Host vectors of handles ``ids`` (base rows, then the live segment's)."""
+    import numpy as np
+
+    base_n = eng.live.base_n
+    seg = eng.live.seg_vectors() if eng.live.seg_n else np.zeros((0, eng.vectors.shape[1]))
+    return np.stack([eng.vectors[i] if i < base_n else seg[i - base_n] for i in ids])
+
+
+def rank_diff(eng, q, paths: dict) -> str:
+    """The ranks where two or more (dists, ids) answers for query q order
+    the rows differently, with each row's distance under every path (nan
+    where a path did not return it) and in fp64 from the host vectors."""
+    import numpy as np
+
+    q = np.asarray(q, np.float32).reshape(-1)
+    ids = {name: np.asarray(i).reshape(-1) for name, (_, i) in paths.items()}
+    dists = {name: np.asarray(d).reshape(-1) for name, (d, _) in paths.items()}
+    ref = next(iter(ids.values()))
+    ranks = [r for r in range(ref.size) if len({int(v[r]) for v in ids.values()}) > 1]
+    rows = sorted({int(v[r]) for v in ids.values() for r in ranks} - {-1})
+    if not rows:
+        return "no rank differs"
+    exact = ((row_vectors(eng, rows).astype(np.float64) - q.astype(np.float64)) ** 2).sum(1)
+    out = []
+    for j, row in enumerate(rows):
+        per = []
+        for name in paths:
+            hit = np.flatnonzero(ids[name] == row)
+            per.append(f"{name} {float(dists[name][hit[0]])!r} (rank {hit[0]})" if hit.size
+                       else f"{name} -")
+        out.append(f"row {row}: " + ", ".join(per) + f", fp64 {float(exact[j])!r}")
+    return f"ranks {ranks} differ; " + "; ".join(out)
+
+
 def check_live_row(eng, q, pred, r, k: int, tag: str, exact: bool = False) -> None:
-    """One row served over a mutated corpus: no tombstoned id, every id
-    passes its predicate once; an ``exact`` row equals the live
-    ground_truth bitwise and the independent live truth up to ties."""
+    """One row served over a live corpus: no tombstoned id, every id
+    passes its predicate once; an ``exact`` row's ids equal, bitwise,
+    those of the pre-filter path at B=1 (``kernel_truth``: the live
+    ground_truth's own path on a mutated corpus), and the row equals the
+    independent live truth (l2_topk) up to ties.  A failure prints each differing row's distance under each
+    path and in fp64."""
     import numpy as np
 
     live = eng.live
@@ -1088,13 +1234,16 @@ def check_live_row(eng, q, pred, r, k: int, tag: str, exact: bool = False) -> No
     check(len(set(ids.tolist())) == ids.size, f"{tag}: an id came back twice: {ids}")
     if not exact:
         return
-    gt = eng.ground_truth(q, pred, k)
-    check(np.array_equal(r.result.ids, gt),
-          f"{tag} ({r.plan.strategy}): {r.result.ids} differs from the live ground_truth {gt}")
+    gd, gt = kernel_truth(eng, q, pred, k)
     td, ti = live_truth(eng, q, pred, k)
+    paths = {"served": (r.result.dists, r.result.ids), "B=1 pre path": (gd, gt),
+             "l2_topk": (td, ti)}
+    check(np.array_equal(r.result.ids, gt),
+          f"{tag} ({r.plan.strategy}, corpus {'dirty' if live.dirty else 'clean'}): "
+          f"{r.result.ids} differs from the B=1 pre path {gt}: " + rank_diff(eng, q, paths))
     check(same_up_to_ties(np.asarray(q, np.float32), r.result.ids, r.result.dists, ti, td),
           f"{tag} ({r.plan.strategy}): {r.result.ids} {r.result.dists} differs from the live "
-          f"truth {ti} {td}")
+          f"truth {ti} {td}: " + rank_diff(eng, q, paths))
 
 
 def check_live_rows(eng, qs, preds, served, batched, k: int, tag: str, exact_of=None) -> dict:
@@ -2799,6 +2948,219 @@ def fp32_exactness(arch: str = QWEN, n_layers: int = 4, new: int = 16, plens=(64
 
 
 # ----------------------------------------------------------------------
+# phase 10: training gemma2-2b on the card
+# ----------------------------------------------------------------------
+H100_BF16_FLOPS = 989e12  # bf16 tensor cores, dense
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_STEPS, TRAIN_WARM = 12, 2
+TRAIN_LR = 3e-4           # the reference train CLI's default --lr, under schedule.constant
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def train_fp32_checks(pipe) -> dict:
+    """10a: gemma2-2b at full width, 2 layers, fp32 (TF32 off), one batch
+    of phase 10's traffic.  ``Model.loss``'s ce equals the cross-entropy of
+    ``forward``'s full (B, S, V) logits; one step with grad_accum 2 equals
+    one with grad_accum 1 from the same state: the losses within 1e-5
+    relative, the first moments m (0.1 x the clipped grad after one step)
+    within 1e-5 of each leaf's max|m|.  m, not the params: a first Adam
+    step is ~lr * sign(g), so a grad within rounding of zero can move a
+    param by 2 lr either way."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step, schedule
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(GEMMA), n_layers=2, dtype="float32")
+    batch = pipe.batch_at(0)
+    runs = []
+    for accum in (1, 2):
+        model = Model(cfg, device="cuda")
+        state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0))
+        runs.append((model, state, make_train_step(model, AdamWConfig(lr=TRAIN_LR),
+                                                   schedule.constant, grad_accum=accum)))
+    model = runs[0][0]
+    with torch.no_grad():
+        _, met = model.loss(batch)
+        logits, _ = model.forward(batch)
+        lab = torch.as_tensor(batch["labels"], device="cuda").long()
+        full = (torch.logsumexp(logits, -1) - logits.gather(-1, lab[..., None])[..., 0]).mean()
+        del logits
+    ce_gap = _rel(met["ce"], full)
+    check(ce_gap <= 1e-5, f"[train-fp32] Model.loss ce {float(met['ce'])!r} differs from the "
+                          f"full-logits CE {float(full)!r} by {ce_gap:.3g} relative")
+    out = [step(state, batch) for _, state, step in runs]
+    (s1, m1), (s2, m2) = out
+    loss_gap = _rel(m2["loss"], m1["loss"])
+    check(loss_gap <= 1e-5, f"[train-fp32] grad_accum 2 loss {float(m2['loss'])!r} against "
+                            f"grad_accum 1 {float(m1['loss'])!r}")
+    worst = 0.0
+    for k, a in s1.opt.m.items():
+        gap = float((s2.opt.m[k] - a).abs().max()) / max(float(a.abs().max()), 1e-30)
+        worst = max(worst, gap)
+        check(gap <= 1e-5, f"[train-fp32] m[{k}]: grad_accum 2 differs from 1 by {gap:.3g} of "
+                           f"max|m|")
+    secs = time.perf_counter() - t0
+    print(f"[train-fp32] gemma2-2b full width, 2 layers, fp32, B={TRAIN_BATCH} S={TRAIN_SEQ}: "
+          f"Model.loss ce {float(met['ce']):.6f} = the full-logits CE within {ce_gap:.3g} "
+          f"relative; grad_accum 2 against 1: loss {float(m2['loss']):.6f} against "
+          f"{float(m1['loss']):.6f} ({loss_gap:.3g} relative), every m leaf within "
+          f"{worst:.3g} of its max|m| (grad norm {float(m1['grad_norm']):.4f}); {secs:.1f} s",
+          flush=True)
+    del runs, out, s1, s2, model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ce_gap": ce_gap, "loss_gap": loss_gap, "m_gap": worst, "seconds": secs}
+
+
+def train_step_bound(model, batch: int, seq: int) -> dict:
+    """The least time of one train step: the larger of its matmul FLOPs
+    at 989 TFLOP/s (bf16) and its optimizer bytes at 3.35 TB/s.  FLOPs are
+    8 N T (6 N T forward and backward, 2 N T the recomputed forward), N the
+    weights that enter a matmul (every matrix, the tied embedding once as
+    the head; its gather is no product), plus causal attention's QK^T and
+    PV over the positions each query needs, four times (forward, recompute,
+    and the backward's two).  Bytes are every fp32 param, grad, m and v
+    read once and param, m and v written once."""
+    cfg = model.cfg
+    tokens = batch * seq
+    n_mm = sum(p.numel() for p in model.parameters() if p.dim() >= 2)
+    n_all = sum(p.numel() for p in model.parameters())
+    keys = sum(sum(min(q + 1, w) for q in range(seq)) for w in model.windows)
+    attn = 4 * (2 * 2 * batch * cfg.n_heads * cfg.dh * keys)
+    flops = 8 * n_mm * tokens + attn
+    bytes_ = 28 * n_all
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, bytes_ / H100_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes), "ops_ms": 1e3 * t_ops,
+            "bytes_ms": 1e3 * t_bytes, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": bytes_, "n_matmul": n_mm, "n_params": n_all}
+
+
+def train_phase() -> dict:
+    """Phase 10: 10a (``train_fp32_checks``), then gemma2-2b at full width
+    and depth, bf16 compute over fp32 masters, on TokenPipeline(vocab
+    256,000, seq 1,024, batch 8, seed 0): TRAIN_STEPS steps of AdamW at
+    TRAIN_LR, constant schedule.  Gates: every loss and grad norm finite,
+    the mean of the last 3 losses below the first, no launch of either
+    kernel.  Printed: each step's loss and grad norm, the median of the
+    steps after TRAIN_WARM (host clock; each step ends reading its loss),
+    tokens/s, peak memory, the step's bound; device busy, idle share and
+    CUDA kernels a step under torch.profiler over 2 more steps; and, by
+    CUDA events, the forward alone (no_grad), forward + backward, and the
+    optimizer update, whose shares of the step estimate the remat's (the
+    recompute repeats the forward once) and the optimizer's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamWConfig, adamw_update, init_train_state,
+                                   make_train_step, schedule)
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 1e9
+    ops.reset_kernel_launches()
+    cfg = get_config(GEMMA)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=0)
+    fp32 = train_fp32_checks(pipe)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device="cuda")
+    holder = [init_train_state(model, torch.Generator(device="cuda").manual_seed(0))]
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    step = make_train_step(model, opt_cfg, schedule.constant)
+
+    def run(i):
+        holder[0], met = step(holder[0], pipe.batch_at(i))
+        return float(met["loss"]), float(met["grad_norm"])
+
+    losses, gnorms, walls = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, gn = run(i)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        gnorms.append(gn)
+        print(f"[train] step {i}: loss {loss:.4f}, grad norm {gn:.4f}, {walls[-1]:.1f} ms",
+              flush=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(np.isfinite(losses).all() and np.isfinite(gnorms).all()),
+          f"[train] a loss or grad norm is not finite: {losses} {gnorms}")
+    check(float(np.mean(losses[-3:])) < losses[0],
+          f"[train] the loss did not fall: first {losses[0]}, last three {losses[-3:]}")
+    step_ms = float(np.median(walls[TRAIN_WARM:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound = train_step_bound(model, TRAIN_BATCH, TRAIN_SEQ)
+
+    _, wall, busy, ka = _device_busy(torch.device("cuda"),
+                                     lambda: [run(TRAIN_STEPS + j) for j in range(2)])
+    if busy is None:
+        busy_ms = idle = per_step = float("nan")
+        print("[train] device time not measured (the profiler saw none)", flush=True)
+    else:
+        busy_ms, per_step = busy * 1e3 / 2, sum(e.count for e in ka) / 2
+        idle = 1.0 - busy_ms / step_ms
+        top = sorted(ka, key=lambda e: -e.self_device_time_total)[:5]
+        print(f"[train] 2 steps under torch.profiler: device busy {busy_ms:.1f} ms/step against "
+              f"the un-profiled {step_ms:.1f} (idle share {idle:.3f}; profiled wall "
+              f"{wall * 1e3 / 2:.1f} ms/step; {per_step:.0f} CUDA kernels a step); top: "
+              + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 2e3:.1f} ms" for e in top),
+              flush=True)
+
+    batch = pipe.batch_at(0)
+    params = holder[0].params
+
+    def fwd():
+        with torch.no_grad():
+            model.loss(batch)
+
+    def fwd_bwd():
+        total, _ = model.loss(batch)
+        return torch.autograd.grad(total, list(params.values()))
+
+    fwd_ms = cuda_ms(fwd, 2)
+    fwd_bwd_ms = cuda_ms(fwd_bwd, 1)
+    grads = dict(zip(params, fwd_bwd()))
+    opt_ms = cuda_ms(lambda: adamw_update(params, grads, holder[0].opt, opt_cfg, 1.0), 3)
+    launches = ops.kernel_launches()
+    check(launches["decode_attention"] == 0 and launches["masked_l2_topk"] == 0,
+          f"[train] training launched a kernel: {launches}")
+    secs = time.perf_counter() - t_phase
+    print(f"[train] gemma2-2b full width and depth ({cfg.n_layers} layers, "
+          f"{bound['n_params'] / 1e9:.3f}B params), bf16 compute over fp32 masters, "
+          f"B={TRAIN_BATCH} S={TRAIN_SEQ}, AdamW lr {TRAIN_LR} constant: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (last three mean {np.mean(losses[-3:]):.4f}); median step "
+          f"{step_ms:.1f} ms over steps {TRAIN_WARM}-{TRAIN_STEPS - 1} against a bound of "
+          f"{bound['bound_ms']:.1f} ms ({bound['bound_by']}: {bound['flops'] / 1e12:.1f} TFLOP at "
+          f"989 TFLOP/s = {bound['ops_ms']:.1f} ms; optimizer {bound['bytes'] / 1e9:.1f} GB at "
+          f"3.35 TB/s = {bound['bytes_ms']:.1f} ms; {card_line()}), step / bound "
+          f"{step_ms / bound['bound_ms']:.2f}; {tokens / step_ms * 1e3:.0f} tokens/s; peak "
+          f"{peak:.2f} GB allocated ({before:.2f} GB held before the phase); by CUDA events: "
+          f"forward alone {fwd_ms:.1f} ms (remat share ~{fwd_ms / step_ms:.3f}), forward + "
+          f"backward {fwd_bwd_ms:.1f} ms, optimizer {opt_ms:.1f} ms (share "
+          f"{opt_ms / step_ms:.3f}); kernel launches over phase 10 {launches}; phase 10 took "
+          f"{secs:.1f} s", flush=True)
+    del model, holder, params, grads, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": gnorms, "step_ms": step_ms, "bound": bound,
+            "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak, "busy_ms": busy_ms,
+            "idle": idle, "kernels_per_step": per_step, "fwd_ms": fwd_ms,
+            "fwd_bwd_ms": fwd_bwd_ms, "opt_ms": opt_ms, "launches": launches, "fp32": fp32,
+            "seconds": secs}
+
+
+# ----------------------------------------------------------------------
 # phase 9: the serve CLI on the card
 # ----------------------------------------------------------------------
 # the top-level keys of the reference CLI's ann-trace snapshot (repro.launch.serve
@@ -2851,7 +3213,41 @@ def cli_phase() -> dict:
         check(sorted(results) == list(range(8)) and all(len(t) == 16 for t in results.values()),
               f"the CLI's --mode lm --arch {arch} did not serve every request its 16 tokens")
         print(f"[cli] --mode lm --arch {arch}: " + text.getvalue().splitlines()[0], flush=True)
+    train_cli()
     return {"launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def train_cli() -> None:
+    """The reference's train-CLI test (tests/test_train.py) on the card:
+    ``repro_torch.launch.train.main`` for hymba-1.5b reduced, 8 steps with a
+    checkpoint every 4, gives 8 finite losses; run again on the same
+    directory it resumes at step 8 and trains nothing."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--arch", HYMBA, "--reduced", "--steps", "8", "--seq-len", "32", "--batch", "4",
+                "--ckpt-dir", tmp, "--ckpt-every", "4"]
+        ops.reset_kernel_launches()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            losses = train.main(argv)
+            again = train.main(argv)
+        train_launches = ops.kernel_launches()
+    check(len(losses) == 8 and all(math.isfinite(x) for x in losses),
+          f"the train CLI gave {losses}, not 8 finite losses")
+    check(again == [], f"the train CLI's resume trained {len(again)} more steps")
+    check(sum(train_launches.values()) == 0, f"the train CLI launched a kernel: {train_launches}")
+    lines = text.getvalue().splitlines()
+    print(f"[cli] train --arch {HYMBA} --reduced --steps 8 --seq-len 32 --batch 4 --ckpt-every "
+          f"4: 8 losses {[round(x, 4) for x in losses]}, then a clean resume ("
+          + "; ".join(ln for ln in lines if ln.startswith(("resuming", "nothing")))
+          + f"); {time.perf_counter() - t1:.1f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -2884,6 +3280,7 @@ def main(argv=None) -> int:
     wc = decode_window_checks()
     i8 = decode_int8_checks()
     mp = main_path(args.rows, args.train, args.serve, args.batch)
+    real_row_independence(mp)
     dnf = dnf_phase(mp)
     rt = routed_phase(mp, dnf["unions"])
     del rt["engine"]
@@ -2933,12 +3330,12 @@ def main(argv=None) -> int:
     fp32_exactness(QWEN, tag="fp32c", teacher_forced=False, kv_cache_int8=True)
     secs_8c = time.perf_counter() - t_phase
     print(f"[fp32c] phase 8c took {secs_8c:.1f} s", flush=True)
+    tr = train_phase()
     t_phase = time.perf_counter()
     cli_phase()
     print(f"[cli] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    new_s = (i8["seconds"] + sum(served[p]["seconds"] for p in ("6d", "6e", "6f")) + secs_8c)
-    print(f"[smoke] this slice's new phases (3d, 6d, 6e, 6f, 8c) took {new_s:.1f} s; the "
-          f"script {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[smoke] phase 10 (training) took {tr['seconds']:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     head = kc["rows"][(1, 2_140_000, 10)]
     b256 = kc["rows"][(256, 2_140_000, 10)]
@@ -2955,6 +3352,7 @@ def main(argv=None) -> int:
         "max_abs_err": kc["max_abs_err"],
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "train_launches": tr["launches"]["masked_l2_topk"],
         "shape": {"B": 1, "N": 2_140_000, "d": 384, "k": 10, "mask_pass": 0.5},
         "ms_b256": b256["ms"], "library_ms_b256": b256["library_ms"],
         "bound_ms_b256": b256["bound_ms"], "path_b256": b256["path"],
@@ -2966,6 +3364,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/decode_attention.py:29",
         "launches": sum(p["launches"]["decode_attention"] for p in served.values()),
         "launches_by_phase": {k: p["launches"]["decode_attention"] for k, p in served.items()},
+        "train_launches": tr["launches"]["decode_attention"],
         "max_abs_err": max(dc["max_abs_err"], wc["max_abs_err"], i8["max_abs_err"],
                            *(p["cache_err"] for p in served.values())),
         "ms": dhead["ms"], "plain_ms": dhead["plain_ms"], "bound_ms": dhead["bound_ms"],

@@ -24,8 +24,11 @@ nor ``repro``; it reads plain attributes and arrays):
   :func:`mutation_tree`, which ``load_mutation_state`` of either package
   takes;
 * the LM's parameter tree (``Model.init(jax.random.PRNGKey(0))``) ->
-  :func:`model_params_from_reference`, and the RAG server's projection ->
-  :func:`retrieval_server`.
+  :func:`model_params_from_reference`, and back (weights or grads) ->
+  :func:`params_to_reference`; a training state (``TrainState``: params,
+  the optimizer's step and moments) both ways ->
+  :func:`train_state_from_reference`, :func:`train_state_to_reference`;
+  the RAG server's projection -> :func:`retrieval_server`.
 
 :func:`install` puts the first five into a built engine.
 """
@@ -42,11 +45,14 @@ from .device import DEFAULT_DEVICE
 from .index.ivf import IVFIndex
 from .models.model import Model
 from .serve.retrieval import RetrievalAugmentedServer
+from .train.optimizer import AdamWState
+from .train.train_step import TrainState
 
 __all__ = ["gbm_state", "gbm_from_state", "planner_from_state",
            "ivf_from_assignment", "ivf_assignment", "ivfpq_state", "acorn_state",
            "install", "shard_ivf_layouts", "install_shard_ivfs", "mutation_tree",
-           "model_params_from_reference", "retrieval_server"]
+           "model_params_from_reference", "params_to_reference", "train_state_from_reference",
+           "train_state_to_reference", "retrieval_server"]
 
 _NODE_FIELDS = ("feature", "threshold", "left", "right", "value")
 
@@ -214,12 +220,15 @@ def model_params_from_reference(cfg, params: Dict, device=DEFAULT_DEVICE) -> Mod
     Every array is cast to the type the port stores it in: ``cfg.dtype``,
     or fp32 for the recurrences' weights the reference uses uncast.
     """
-    model = Model(cfg, device=device)
+    return _load(Model(cfg, device=device), params)
+
+
+def _by_name(cfg, params: Dict, n: int) -> Dict[str, np.ndarray]:
+    """The reference's nested, layer-stacked tree by the port's names."""
     state = {"embed": params["embed"], "final_ln": params["final_ln"]}
     if not cfg.tie_embeddings:
         state["lm_head"] = params["lm_head"]
     stacked = "blocks" if cfg.family == "ssm" else "layers"
-    n = len(model.blocks) if cfg.family == "ssm" else cfg.n_layers
     for path, arr in _flatten(params[stacked]):
         arr = np.asarray(arr)
         if arr.shape[0] != n:
@@ -230,6 +239,17 @@ def model_params_from_reference(cfg, params: Dict, device=DEFAULT_DEVICE) -> Mod
                     state[f"{stacked}.{i}.mlstm.{j}.{path[6:]}"] = arr[i, j]
             else:
                 state[f"{stacked}.{i}.{path}"] = arr[i]
+    return state
+
+
+def _n_stacked(model: Model) -> int:
+    return len(model.blocks) if model.cfg.family == "ssm" else model.cfg.n_layers
+
+
+def _load(model: Model, params: Dict) -> Model:
+    """Copy the reference's tree into ``model``'s weights, each cast to the
+    type the model stores it in."""
+    state = _by_name(model.cfg, params, _n_stacked(model))
     own = model.state_dict()
     if set(state) != set(own):
         raise ValueError(f"parameter names differ: reference-only {sorted(set(state) - set(own))}, "
@@ -241,6 +261,83 @@ def model_params_from_reference(cfg, params: Dict, device=DEFAULT_DEVICE) -> Mod
                 raise ValueError(f"{name}: shape {arr.shape} != {tuple(own[name].shape)}")
             own[name].copy_(torch.from_numpy(arr))
     return model
+
+
+def params_to_reference(model: Model, tensors: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> Dict:
+    """The inverse of :func:`model_params_from_reference`: ``model``'s
+    weights (or ``tensors``, a dict by the same names: its grads, or an
+    optimizer moment) as the reference's nested tree of numpy arrays, layer
+    i stacked at row i of ``layers`` (an xLSTM's group g and mLSTM j at
+    ``blocks`` [g] and [g, j]).  Arrays keep their stored type."""
+    cfg = model.cfg
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    stacked = "blocks" if cfg.family == "ssm" else "layers"
+    rows: Dict[str, Dict[Tuple[int, ...], np.ndarray]] = {}
+    out: Dict = {}
+    for name, t in tensors.items():
+        arr = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        parts = name.split(".")
+        if parts[0] != stacked:
+            out[name] = arr
+        elif len(parts) > 4 and parts[2] == "mlstm":
+            rows.setdefault(".".join(["mlstm"] + parts[4:]), {})[
+                (int(parts[1]), int(parts[3]))] = arr
+        else:
+            rows.setdefault(".".join(parts[2:]), {})[(int(parts[1]),)] = arr
+    tree: Dict = {}
+    for path, by_at in rows.items():
+        ats = sorted(by_at)
+        shape = tuple(max(a[d] for a in ats) + 1 for d in range(len(ats[0])))
+        first = by_at[ats[0]]
+        arr = np.empty(shape + first.shape, first.dtype)
+        for at, a in by_at.items():
+            arr[at] = a
+        node = tree
+        *dirs, leaf = path.split(".")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = arr
+    out[stacked] = tree
+    return out
+
+
+def train_state_to_reference(model: Model, state: TrainState) -> TrainState:
+    """A port ``TrainState`` as the reference's: params and the moments
+    ``m``, ``v`` as :func:`params_to_reference` trees, ``step`` a 0-d
+    int32 array.  Its fields have the reference's names, so a
+    ``Checkpointer`` of either package saves it under the reference's keys
+    (``.params/...``, ``.opt/.step``, ``.opt/.m/...``)."""
+    return TrainState(
+        params=params_to_reference(model, state.params),
+        opt=AdamWState(step=np.asarray(state.opt.step.cpu().numpy(), np.int32),
+                       m=params_to_reference(model, state.opt.m),
+                       v=params_to_reference(model, state.opt.v)))
+
+
+def train_state_from_reference(cfg, state_np, device=DEFAULT_DEVICE,
+                               model: Optional[Model] = None) -> Tuple[Model, TrainState]:
+    """The inverse of :func:`train_state_to_reference`: a reference
+    ``TrainState`` of numpy arrays (``jax.tree.map(np.asarray, state)``, or
+    a restored checkpoint's tree) -> (a trainable :class:`Model` holding
+    its params, a port ``TrainState`` over that model's parameters, its
+    moments fp32 on ``device``).  With ``model`` the params are copied into
+    it (made trainable first) instead of into a new one."""
+    if model is None:
+        model = Model(cfg, device=device)
+    _load(model.trainable(), state_np.params)
+    dev = model.device
+    n = _n_stacked(model)
+
+    def moments(tree) -> Dict[str, torch.Tensor]:
+        return {k: torch.tensor(np.asarray(a, np.float32), device=dev)
+                for k, a in _by_name(cfg, tree, n).items()}
+
+    opt = AdamWState(step=torch.tensor(int(np.asarray(state_np.opt.step)), dtype=torch.int32,
+                                       device=dev),
+                     m=moments(state_np.opt.m), v=moments(state_np.opt.v))
+    return model, TrainState(params=dict(model.named_parameters()), opt=opt)
 
 
 def _flatten(tree: Dict, prefix: str = ""):

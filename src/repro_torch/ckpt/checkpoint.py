@@ -8,12 +8,15 @@ Layout:  <dir>/step_<N>/
 
 * the tree flattening gives the leaf keys and order
   ``jax.tree_util.tree_flatten_with_path`` gives for the trees that get
-  saved (nested dicts by sorted key, lists and tuples by index, ``None``
-  as no leaf), so a directory written by either package restores in the
-  other with the same keys;
+  saved (nested dicts by sorted key, a ``NamedTuple``'s fields as
+  ``.<name>`` in field order, other lists and tuples by index, ``None`` as
+  no leaf), so a directory written by either package restores in the
+  other with the same keys: a ``TrainState`` as ``.params/embed``,
+  ``.opt/.step``, ``.opt/.m/layers/attn/wq``;
 * leaves are torch tensors or numpy arrays (or scalars); ``save`` copies a
-  tensor to the host on the caller's thread.  bf16 leaves are refused:
-  ``.npy`` has no bf16, and weight checkpoints come with training;
+  tensor to the host on the caller's thread.  bf16 leaves are refused
+  (``.npy`` has no bf16); a training state has none, its params and
+  moments being fp32;
 * atomicity: written to ``step_<N>.tmp`` then renamed — a crash leaves
   either the old or the new checkpoint, never a torn one;
 * async: ``save_async`` snapshots to host memory on the caller's thread,
@@ -44,11 +47,18 @@ def _walk(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], A
     if isinstance(tree, dict):
         for key in sorted(tree):
             yield from _walk(tree[key], path + (str(key),))
+    elif _is_namedtuple(tree):
+        for name, sub in zip(tree._fields, tree):
+            yield from _walk(sub, path + (f".{name}",))
     elif isinstance(tree, (list, tuple)):
         for i, sub in enumerate(tree):
             yield from _walk(sub, path + (str(i),))
     else:
         yield path, tree
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
 
 def _flatten(tree) -> List[Tuple[str, Any]]:
@@ -61,6 +71,8 @@ def _unflatten(tree, leaves: Iterator[Any]):
         return None
     if isinstance(tree, dict):
         return {key: _unflatten(tree[key], leaves) for key in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_unflatten(sub, leaves) for sub in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten(sub, leaves) for sub in tree)
     return next(leaves)
@@ -70,7 +82,7 @@ def _to_host(key: str, leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(f"leaf {key!r} is bfloat16, which .npy cannot hold; "
-                            "cast it (weight checkpoints are not supported yet)")
+                            "cast it (a training state's fp32 masters need no cast)")
         return leaf.detach().to("cpu", copy=True).numpy()
     arr = np.asarray(leaf)
     if str(arr.dtype) == "bfloat16":

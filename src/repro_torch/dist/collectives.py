@@ -1,12 +1,25 @@
-"""Top-k merges over candidate lists: the shard merge and the DNF union.
+"""Compressed all-reduces and top-k merges over candidate lists.
 
-Port of ``repro/dist/collectives.py``'s ``merge_topk`` and
-``merge_topk_unique``, copied as host numpy.  Their inputs are the
-executors' results, which are host arrays already (``SearchResult``), and a
-merge handles at most (B, n_lists * k) candidates, so a round trip through
-the device would only add copies.  The int8 all-reduces of that module
-(``compressed_psum``, ``psum_with_error_feedback``) belong to the training
-path and are not ported yet.
+Port of ``repro/dist/collectives.py``.
+
+``compressed_psum`` and ``psum_with_error_feedback`` are the reference's
+int8 all-reduce-mean over ``torch.distributed`` (a ``group`` in place of
+the reference's ``axis_name``; call them from every rank of the group):
+
+    scale_i = max(max|x_i| / 127, 1e-12)      (per rank i)
+    q_i     = round(x_i / scale_i)  in [-127, 127], int8
+    mean    = (1/n) * sum_i q_i * scale_i
+
+As in the reference, the all-reduce sums the locally dequantised payload
+(identical arithmetic; a production collective would move the int8 bytes
+and one scale per rank).  ``psum_with_error_feedback`` carries each rank's
+rounding residual e_t = c_t - Q(c_t), c_t = g_t + e_{t-1}, into the next
+call, so the accumulated means converge to the exact one (EF-SGD).
+
+``merge_topk`` and ``merge_topk_unique`` are copied as host numpy.  Their
+inputs are the executors' results, which are host arrays already
+(``SearchResult``), and a merge handles at most (B, n_lists * k)
+candidates, so a round trip through the device would only add copies.
 
 Both merges order candidates by one int64 composite key whose high word is
 the f32 distance's bit pattern (squared-L2 distances are non-negative, so
@@ -18,8 +31,44 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
-__all__ = ["merge_topk", "merge_topk_unique"]
+__all__ = ["compressed_psum", "psum_with_error_feedback", "merge_topk", "merge_topk_unique"]
+
+
+def _quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-rank int8 quantisation: (q, scale), x ~= q * scale."""
+    scale = torch.clamp_min(x.abs().max() / 127.0, 1e-12)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _reduced_mean(q: torch.Tensor, scale: torch.Tensor, group=None) -> torch.Tensor:
+    deq = q.to(torch.float32) * scale                 # this rank's int8 contribution
+    dist.all_reduce(deq, op=dist.ReduceOp.SUM, group=group)
+    return deq / dist.get_world_size(group)
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """int8-quantised all-reduce-mean over ``group`` (the default group
+    when None).  Error is bounded by the largest rank's quantisation step:
+    |out - mean| <= max_i(scale_i) / 2."""
+    q, scale = _quantize_int8(x)
+    return _reduced_mean(q, scale, group)
+
+
+def psum_with_error_feedback(g: torch.Tensor, err: torch.Tensor, group=None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compressed all-reduce-mean with a carried quantisation residual.
+
+    Returns ``(mean, new_err)``; pass ``new_err[0]`` back as ``err`` on the
+    next call so that repeated reductions converge to the exact mean.  The
+    residual keeps the reference's leading singleton (shard) axis."""
+    comp = g + err
+    q, scale = _quantize_int8(comp)
+    new_err = comp - q.to(torch.float32) * scale      # includes clip error
+    return _reduced_mean(q, scale, group), new_err[None]
 
 
 def merge_topk(

@@ -26,6 +26,7 @@ numbers (see ``models.model``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -38,6 +39,7 @@ __all__ = [
     "NEG", "CHUNK", "rms_norm", "rope", "softcap", "quantize_kv", "dequantize_kv",
     "flash_attention",
     "attn_init", "attn_qkv", "attn_out", "mlp_init", "mlp", "moe_init", "moe_ffn",
+    "drop_log_paused",
 ]
 
 NEG = -2.0e38
@@ -174,6 +176,19 @@ def mlp(p, x: torch.Tensor) -> torch.Tensor:
 # count of dropped (token, expert) assignments as a device tensor (no host
 # sync); the measurement reads the list afterwards.
 moe_drop_log: Optional[list] = None
+
+
+@contextlib.contextmanager
+def drop_log_paused():
+    """``moe_drop_log`` off inside the block: a layer recomputed for its
+    backward pass (``torch.utils.checkpoint``) logs its drops once, in the
+    forward."""
+    global moe_drop_log
+    saved, moe_drop_log = moe_drop_log, None
+    try:
+        yield
+    finally:
+        moe_drop_log = saved
 
 
 def moe_init(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Optional[float]]]:

@@ -10,6 +10,7 @@ KV cache:
 
     model = Model(cfg, device="cuda").init(torch.Generator("cuda").manual_seed(0))
     logits, aux = model.forward({"tokens": tokens})
+    total, metrics = model.trainable().loss({"tokens": tokens, "labels": labels})
     logits, cache = model.prefill({"tokens": tokens}, max_len, lengths=lengths)
     logits, cache = model.decode_step(cache, next_tokens, lengths)
 
@@ -21,12 +22,18 @@ loops.
 
 Differences from the reference, each giving the same numbers:
 
-* Weights are stored in ``cfg.dtype`` on the device.  The reference keeps
-  fp32 masters and casts them to ``cfg.dtype`` before every use (its
-  ``_embed``, ``_logits``, ``attn_qkv``, ``attn_out``, ``mlp``, ``rms_norm``),
-  so storing the cast values gives the same products at half the memory in
-  bf16.  The recurrences' weights that the reference uses uncast
-  (``ssm.MAMBA_FP32``, ``ssm.SLSTM_FP32``) stay fp32.
+* A serving model stores its weights in ``cfg.dtype`` on the device.  The
+  reference keeps fp32 masters and casts them to ``cfg.dtype`` before every
+  use (its ``_embed``, ``_logits``, ``attn_qkv``, ``attn_out``, ``mlp``,
+  ``rms_norm``), so storing the cast values gives the same products at half
+  the memory in bf16.  The recurrences' weights that the reference uses
+  uncast (``ssm.MAMBA_FP32``, ``ssm.SLSTM_FP32``) stay fp32.  A model made
+  ``trainable()`` stores fp32 masters, as the reference does, and every use
+  site casts them to ``cfg.dtype``; its weights take gradients.
+* Training (``loss``) runs each decoder layer, each xLSTM group and each
+  cross-entropy chunk under ``torch.utils.checkpoint``, the reference's
+  ``jax.checkpoint(nothing_saveable)``; ``forward``, ``prefill`` and
+  ``decode_step`` run under ``no_grad`` and never checkpoint.
 * The KV cache is (L, B, KV, S, dh) in ``cfg.dtype``, as the reference's;
   with ``kv_cache_int8`` it is int8 with fp32 ``k_scale``/``v_scale``
   (L, B, KV, S), and the decode kernel dequantizes in registers where the
@@ -42,10 +49,13 @@ construction, never mis-serve.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import DEFAULT_DEVICE, resolve_device
@@ -55,6 +65,7 @@ from .layers import (
     attn_init,
     attn_out,
     attn_qkv,
+    drop_log_paused,
     flash_attention,
     mlp,
     mlp_init,
@@ -71,6 +82,7 @@ __all__ = ["Model", "DecoderLayer", "XlstmGroup", "Params", "check_supported",
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _LATER = "ROADMAP Queue 1 item 13"
 GLOBAL_WINDOW = 2_000_000_000  # "window" value meaning full attention
+CE_CHUNK = 512                 # positions per cross-entropy chunk, as the reference's
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -213,6 +225,25 @@ class Model(nn.Module):
                     layer.mamba[name].copy_(val)
         return self
 
+    def trainable(self) -> "Model":
+        """Make every weight an fp32 master that takes gradients, as the
+        reference's parameters are: a bf16 model then computes in bf16 from
+        casts made at each use, and its gradients come back in fp32.  A
+        serving model keeps ``cfg.dtype`` storage and frozen weights.
+        Returns ``self``."""
+        self.float()
+        self.requires_grad_(True)
+        return self
+
+    def _remat(self, fn, *args):
+        """``fn(*args)``, under ``torch.utils.checkpoint`` when a graph is
+        being built for the weights (its activations are recomputed in the
+        backward pass, as the reference's ``jax.checkpoint``)."""
+        if torch.is_grad_enabled() and self.embed.requires_grad:
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(), drop_log_paused()))
+        return fn(*args)
+
     # ==================================================================
     # shared pieces
     # ==================================================================
@@ -220,7 +251,7 @@ class Model(nn.Module):
         return torch.as_tensor(tokens, device=self.device).long()
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens]
+        x = self.embed[tokens].to(self.dtype)
         if self.cfg.embed_scale:
             x = x * torch.as_tensor(self.cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
         return x
@@ -228,8 +259,13 @@ class Model(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = rms_norm(x, self.final_ln, cfg.norm_eps)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
-        return softcap((x @ head).float(), cfg.final_softcap)
+        return softcap((x @ self._head(x.dtype)).float(), cfg.final_softcap)
+
+    def _head(self, dtype: torch.dtype) -> torch.Tensor:
+        """The (D, V) output projection in the compute type: the tied
+        embedding's transpose or ``lm_head``."""
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return head.to(dtype)
 
     def _attn_block(self, lp: DecoderLayer, x: torch.Tensor, window: int,
                     positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -269,24 +305,32 @@ class Model(nn.Module):
         state (``step`` False), their final states written into ``cache``
         when one is given; or one token (S = 1) through the step forms from
         ``cache``'s states, updated in place (``step`` True)."""
-        cfg = self.cfg
-        eps = cfg.norm_eps
         for gi, grp in enumerate(self.blocks):
-            blocks = [(ssm.slstm_seq, ssm.slstm_step, grp.slstm, grp.slstm_ln, "slstm", gi)]
-            blocks += [(ssm.mlstm_seq, ssm.mlstm_step, mp, grp.mlstm_ln[j], "mlstm", (gi, j))
-                       for j, mp in enumerate(grp.mlstm)]
-            for seq_fn, step_fn, p, ln, key, at in blocks:
-                h = rms_norm(x, ln, eps)
-                if step:
-                    st = {k: t[at] for k, t in cache[key].items()}
-                    y, new = step_fn(p, h[:, 0], cfg, st)
-                    y = y[:, None]
-                else:
-                    y, new = seq_fn(p, h, cfg)
-                if cache is not None:
-                    for k, t in cache[key].items():
-                        t[at] = new[k]
-                x = x + y
+            if cache is None:
+                x = self._remat(self._xlstm_group, gi, grp, x)
+            else:
+                x = self._xlstm_group(gi, grp, x, cache, step)
+        return x
+
+    def _xlstm_group(self, gi: int, grp: XlstmGroup, x: torch.Tensor, cache=None,
+                     step: bool = False) -> torch.Tensor:
+        """One group of :meth:`_xlstm`: its sLSTM block, then its mLSTMs."""
+        cfg = self.cfg
+        blocks = [(ssm.slstm_seq, ssm.slstm_step, grp.slstm, grp.slstm_ln, "slstm", gi)]
+        blocks += [(ssm.mlstm_seq, ssm.mlstm_step, mp, grp.mlstm_ln[j], "mlstm", (gi, j))
+                   for j, mp in enumerate(grp.mlstm)]
+        for seq_fn, step_fn, p, ln, key, at in blocks:
+            h = rms_norm(x, ln, cfg.norm_eps)
+            if step:
+                st = {k: t[at] for k, t in cache[key].items()}
+                y, new = step_fn(p, h[:, 0], cfg, st)
+                y = y[:, None]
+            else:
+                y, new = seq_fn(p, h, cfg)
+            if cache is not None:
+                for k, t in cache[key].items():
+                    t[at] = new[k]
+            x = x + y
         return x
 
     def _decoder_forward(self, x: torch.Tensor, positions: torch.Tensor):
@@ -296,18 +340,22 @@ class Model(nn.Module):
             return self._xlstm(x), 0.0
         aux = 0.0
         for lp, w in zip(self.layers, self.windows):
-            x, _, _ = self._attn_block(lp, x, w, positions)
-            if self.cfg.family == "hybrid":
-                x, _ = self._mamba_block(lp, x)
-            x, aux = self._ffn_block(lp, x, aux)
+            x, aux = self._remat(self._layer, lp, w, x, aux, positions)
         return x, aux
 
+    def _layer(self, lp: DecoderLayer, w: int, x: torch.Tensor, aux, positions: torch.Tensor):
+        """One decoder layer of :meth:`_decoder_forward`: (x, aux) after it."""
+        x, _, _ = self._attn_block(lp, x, w, positions)
+        if self.cfg.family == "hybrid":
+            x, _ = self._mamba_block(lp, x)
+        return self._ffn_block(lp, x, aux)
+
     # ==================================================================
-    # public: forward
+    # public: forward / loss
     # ==================================================================
-    @torch.no_grad()
     def _hidden(self, batch: Dict) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
-        """Final hidden states over the token positions (pre-logits)."""
+        """Final hidden states over the token positions (pre-logits); under
+        autograd when the caller's grad mode is on."""
         x = self._embed(self._tokens(batch["tokens"]))
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         return self._decoder_forward(x, positions)
@@ -319,6 +367,43 @@ class Model(nn.Module):
         with MoE."""
         x, aux = self._hidden(batch)
         return self._logits(x), aux
+
+    def loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Chunked cross-entropy, as the reference's ``loss``: the (B, S, V)
+        fp32 logits never exist at once.  The positions run in chunks of
+        min(CE_CHUNK, S), the last padded with labels -1; each chunk's
+        logits get ``final_softcap`` before the log-sum-exp, labels < 0
+        count nothing, and each chunk is recomputed in the backward pass
+        (``torch.utils.checkpoint``), so one chunk's fp32 logits live at a
+        time.  Returns (ce + 0.01 * aux, {"ce", "aux", "tokens"}): 0-d
+        tensors (aux a float 0.0 without MoE)."""
+        cfg = self.cfg
+        x, aux = self._hidden(batch)
+        labels = self._tokens(batch["labels"])
+        x = rms_norm(x, self.final_ln, cfg.norm_eps)
+        head = self._head(x.dtype)
+        s = x.shape[1]
+        ch = min(CE_CHUNK, s)
+        pad = (-s) % ch
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=-1)
+        ce_sum = torch.zeros((), device=self.device)
+        for c0 in range(0, s + pad, ch):
+            ce_sum = ce_sum + self._remat(self._chunk_ce, x[:, c0:c0 + ch],
+                                          labels[:, c0:c0 + ch], head)
+        n_tok = torch.clamp_min((labels >= 0).sum(), 1)
+        ce = ce_sum / n_tok
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux, "tokens": n_tok}
+
+    def _chunk_ce(self, xc: torch.Tensor, lc: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+        """Summed cross-entropy of one chunk (B, ch, D) against labels
+        (B, ch), in fp32."""
+        logits = softcap((xc @ head).float(), self.cfg.final_softcap)
+        valid = lc >= 0
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, torch.clamp_min(lc, 0)[..., None])[..., 0]
+        return torch.where(valid, lse - ll, torch.zeros((), device=lse.device)).sum()
 
     # ==================================================================
     # serving: cache init / prefill / decode

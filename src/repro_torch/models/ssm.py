@@ -19,8 +19,10 @@ the step form continues from the state the sequence form leaves:
 
 Every state is fp32.  The reference's recurrences are ``lax.scan``s under
 ``jax.jit``, not Pallas kernels, so these are plain PyTorch; its
-``jax.checkpoint`` is a training-memory device and serving under
-``no_grad`` drops it.  ``jax.nn.log_sigmoid`` is ``F.logsigmoid`` and
+``jax.checkpoint`` is ``Model``'s ``torch.utils.checkpoint`` around each
+layer or group when it trains.  Every form is differentiable; the Mamba
+scan writes its step states into a preallocated buffer (``out=``) when no
+input takes a gradient and stacks them when one does, the same values.  ``jax.nn.log_sigmoid`` is ``F.logsigmoid`` and
 ``jax.nn.softplus`` is ``F.softplus``, whose threshold of 20 returns x
 there: within an fp32 ulp of jax's x + log1p(exp(-x)).
 
@@ -287,7 +289,8 @@ def mamba_seq(p, x: torch.Tensor, cfg: ModelConfig, state: Optional[State] = Non
               ) -> Tuple[torch.Tensor, State]:
     """The selective scan h_t = exp(dt_t a) h_{t-1} + dt_t x_t B_t, y_t =
     h_t . C_t, one step at a time in fp32; each SCAN_CHUNK steps' decays and
-    inputs are made together, and the step is one ``addcmul``."""
+    inputs are made together, and the step is one ``addcmul``, written in
+    place into the chunk's state buffer unless autograd records it."""
     b, s, _ = x.shape
     n = cfg.ssm_state
     dt_ = x.dtype
@@ -306,9 +309,16 @@ def mamba_seq(p, x: torch.Tensor, cfg: ModelConfig, state: Optional[State] = Non
         sl = slice(t0, min(t0 + SCAN_CHUNK, s))
         da = torch.exp(dt[:, sl, :, None] * a)              # (B,T,Di,N)
         u = (dt[:, sl] * x_c[:, sl])[..., None] * b_in[:, sl, None, :]
-        hs = torch.empty_like(da)
-        for t in range(da.shape[1]):
-            h = torch.addcmul(u[:, t], da[:, t], h, out=hs[:, t])
+        if torch.is_grad_enabled() and (u.requires_grad or da.requires_grad or h.requires_grad):
+            steps = []
+            for t in range(da.shape[1]):
+                h = torch.addcmul(u[:, t], da[:, t], h)
+                steps.append(h)
+            hs = torch.stack(steps, dim=1)
+        else:
+            hs = torch.empty_like(da)
+            for t in range(da.shape[1]):
+                h = torch.addcmul(u[:, t], da[:, t], h, out=hs[:, t])
         ys.append(torch.einsum("btdn,btn->btd", hs, c_out[:, sl]))
         h = hs[:, -1].clone()
         del da, u, hs

@@ -57,7 +57,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
                 "repro_torch.fleet.collections", "repro_torch.fleet.fairshare",
                 "repro_torch.fleet.telemetry", "repro_torch.ckpt",
                 "repro_torch.ckpt.checkpoint", "repro_torch.launch",
-                "repro_torch.launch.serve", "torch"):
+                "repro_torch.launch.serve", "repro_torch.launch.train", "repro_torch.train",
+                "repro_torch.train.optimizer", "repro_torch.train.schedule",
+                "repro_torch.train.train_step", "repro_torch.data.pipeline", "torch"):
         assert mod in loaded, mod
 
 
