@@ -174,19 +174,36 @@ Phases, each printed as it runs:
      the reference CLI's keys, masked_l2_topk launched), then --mode lm for
      gemma2-2b, olmoe-1b-7b, hymba-1.5b and xlstm-1.3b (every request its
      tokens); then the train CLI (repro_torch.launch.train.main, hymba-1.5b
-     reduced, 8 steps, a checkpoint every 4): 8 losses, then a clean resume
-     on the same directory;
+     reduced, 8 steps, a checkpoint every 4) over the local mesh (a 1-rank
+     NCCL group, FSDP2): 8 losses within 1e-6 of the plain one-device
+     step's over the same batches, then a clean resume on the same
+     directory;
+  11. qwen3-32b at full width and all 64 layers in bf16 (after every
+     earlier model is freed): first, with nothing allocated, the dry-run
+     (repro_torch.launch.dryrun on a 1 x 1 mesh, fake tensors) predicts the
+     decode step's argument bytes and temp bytes and the prefill's peak,
+     beside the analytic memory term and decode_step_bounds; then 4
+     requests (prompts of 256-2,048 tokens, 16 new) through ServeEngine in
+     8 slots, max_len 2,088, with phase 6's gates (64 decode launches a
+     step, the kernel against its plain version on the model's cache); the
+     bytes allocated by init plus the cache within 1 % of the predicted
+     argument bytes (gated: the dry-run counts the model's own bytes); the
+     peak within 10 % of the traced prefill's predicted peak (gated: the
+     prediction of fit); the peak against the decode step's prediction and
+     the card's memory, the decode step against the analytic memory term and
+     decode_step_bounds, and phase 10's train step against analytic_cost
+     (printed, not gated);
   5. one JSON line listing every kernel, then the card line, then the
      result line {"ok": true, "device": {...}}.
 
 Each path's kernel launch counts are set to 0 just before it and read
-just after it (phases 4, 4b, 4c, 4d, 4e, 6, 6b-6f, 7, 9; 4c's routed serving, its
+just after it (phases 4, 4b, 4c, 4d, 4e, 6, 6b-6f, 7, 9, 11; 4c's routed serving, its
 spanning-head serving and its live serving each; 4d and 4e each as a
 whole, ground truth and rebuilds included, and their serving runs alone:
 in 4e the runtime's own batch_query calls, never the checks of them);
 masked_l2_topk's launches in the kernels line are the sum over phases 4,
-4b, 4c, 4d and 4e (serving runs), decode_attention's over phases 6 and
-6b-6f (int8 calls included).  Any failed check raises, so the script
+4b, 4c, 4d and 4e (serving runs), decode_attention's over phases 6,
+6b-6f (int8 calls included) and 11.  Any failed check raises, so the script
 exits non-zero and prints no result.  It needs a CUDA card and the repo's
 ``src/`` beside it, and imports nothing of the JAX package.
 """
@@ -2591,10 +2608,12 @@ def lm_serving(arch: str = QWEN, plens=(256, 2048), n_requests: int = 16, slots:
         overrides["n_layers"] = n_layers
     cfg = dataclasses.replace(cfg, **overrides)
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_alloc = torch.cuda.memory_allocated() - base
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     kv_cache = cache_bytes(cfg, slots, max_len, model.embed.element_size())
     state = state_bytes(cfg, slots)
@@ -2614,7 +2633,7 @@ def lm_serving(arch: str = QWEN, plens=(256, 2048), n_requests: int = 16, slots:
     n_requests = len(reqs)
     eng = ServeEngine(model, batch_slots=slots, max_len=max_len)
     prefill, decode = eng._prefill, eng._decode
-    prefill_s, step_ms, step_lengths, last, dropped = [], [], [], {}, []
+    prefill_s, step_ms, step_lengths, last, dropped, cache_nbytes = [], [], [], {}, [], []
 
     def timed_prefill(batch, lens):
         torch.cuda.synchronize()
@@ -2623,6 +2642,7 @@ def lm_serving(arch: str = QWEN, plens=(256, 2048), n_requests: int = 16, slots:
         out = prefill(batch, lens)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t)
+        cache_nbytes.append(sum(x.nbytes for x in _leaves(out[1])))
         if layers.moe_drop_log is not None:
             dropped.append(int(sum(int(x) for x in layers.moe_drop_log[n_log:])))
         last.update(cache=out[1], lens=lens, tokens=batch["tokens"])
@@ -2751,7 +2771,14 @@ def lm_serving(arch: str = QWEN, plens=(256, 2048), n_requests: int = 16, slots:
             "attention_ms_per_step_est": per_step_ms, "tokens_per_s": n_tok / serve_s,
             "prefill_s": prefill_s, "peak_gb": peak, "idle_share": idle, "cache_err": cache_err,
             "dropped": dropped, "agree": agree, "results": results, "kv_cache_bytes": kv_cache,
-            "kernels_per_step": kernels, "seconds": secs}
+            "kernels_per_step": kernels, "seconds": secs, "init_alloc": init_alloc,
+            "cache_nbytes": cache_nbytes}
+
+
+def _leaves(tree):
+    """The tensors of a (nested) cache dict."""
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def decode_idle_share(model, reqs, max_len: int, step_ms: float, n: int = 8,
@@ -3217,14 +3244,43 @@ def cli_phase() -> dict:
     return {"launches": launches, "seconds": time.perf_counter() - t0}
 
 
+def plain_losses(arch: str, steps: int, seq: int, batch: int, lr: float = 3e-4) -> list:
+    """The losses of the plain one-device step (``make_train_step``, no
+    mesh) over the train CLI's batches, from its init: what the CLI's mesh
+    path must give on one rank."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cfg = get_config(arch).reduced()
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                         frontend=cfg.frontend, frontend_len=cfg.frontend_len,
+                         d_model=cfg.d_model)
+    model = Model(cfg, device="cuda")
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(model, AdamWConfig(lr=lr))
+    out = []
+    for i in range(steps):
+        state, met = step(state, pipe.batch_at(i))
+        out.append(float(met["loss"]))
+    return out
+
+
 def train_cli() -> None:
     """The reference's train-CLI test (tests/test_train.py) on the card:
     ``repro_torch.launch.train.main`` for hymba-1.5b reduced, 8 steps with a
-    checkpoint every 4, gives 8 finite losses; run again on the same
+    checkpoint every 4, over the local mesh (a 1-rank NCCL group it makes
+    itself, FSDP2 over its one rank), gives 8 losses within 1e-6 of the
+    plain one-device step's over the same batches; run again on the same
     directory it resumes at step 8 and trains nothing."""
     import contextlib
     import io
     import tempfile
+
+    import torch.distributed as dist
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train
@@ -3241,13 +3297,148 @@ def train_cli() -> None:
         train_launches = ops.kernel_launches()
     check(len(losses) == 8 and all(math.isfinite(x) for x in losses),
           f"the train CLI gave {losses}, not 8 finite losses")
+    check(not dist.is_initialized(), "the train CLI left its process group behind")
+    plain = plain_losses(HYMBA, 8, 32, 4)
+    gap = max(abs(a - b) for a, b in zip(losses, plain))
+    check(gap <= 1e-6, f"the train CLI's mesh-path losses {losses} differ from the plain "
+                       f"step's {plain} by {gap:.3g}")
     check(again == [], f"the train CLI's resume trained {len(again)} more steps")
     check(sum(train_launches.values()) == 0, f"the train CLI launched a kernel: {train_launches}")
     lines = text.getvalue().splitlines()
     print(f"[cli] train --arch {HYMBA} --reduced --steps 8 --seq-len 32 --batch 4 --ckpt-every "
-          f"4: 8 losses {[round(x, 4) for x in losses]}, then a clean resume ("
+          f"4 over the local mesh (1-rank NCCL, FSDP2): 8 losses {[round(x, 4) for x in losses]}"
+          f", within {gap:.3g} of the plain one-device step's, then a clean resume ("
           + "; ".join(ln for ln in lines if ln.startswith(("resuming", "nothing")))
           + f"); {time.perf_counter() - t1:.1f} s", flush=True)
+
+
+# ----------------------------------------------------------------------
+# phase 11: qwen3-32b at full width and depth, held to the dry-run
+# ----------------------------------------------------------------------
+QWEN32 = "qwen3-32b"
+# 4 requests, not 8: the script passed 1,000 s with 8 (PERF.md section 4);
+# the 4 are served as one batch of 4 rows in the 8 slots
+Q32_SLOTS, Q32_MAX_LEN, Q32_REQUESTS, Q32_NEW = 8, 2088, 4, 16
+Q32_ROWS = min(Q32_REQUESTS, Q32_SLOTS)
+ARG_GATE = 0.01           # allocated weights + cache against the dry-run's argument bytes
+PEAK_BAND = 0.10          # the measured peak against the traced prefill's predicted peak
+
+
+def dryrun_predictions(prefill_len: int) -> dict:
+    """Step 1 of phase 11, before anything of it is allocated: the dry-run
+    (``repro_torch.launch.dryrun.cell_record``, fake tensors on a fake
+    1-rank group) of qwen3-32b's decode step at the served batch's
+    Q32_ROWS rows over a 2,088-position cache on a (1, 1) mesh, and of its
+    prefill of those prompts padded to ``prefill_len``; the analytic memory
+    term of the decode cell; ``decode_step_bounds`` of a fake model with
+    every row at 2,088 positions."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    cfg = get_config(QWEN32)
+    dec = dryrun.cell_record(cfg, ShapeSpec("decode_2088", Q32_MAX_LEN, Q32_ROWS, "decode"),
+                             mesh_shape=(1, 1), arch=QWEN32)
+    pre = dryrun.cell_record(cfg, ShapeSpec(f"prefill_{prefill_len}", prefill_len, Q32_ROWS,
+                                            "prefill"), mesh_shape=(1, 1), arch=QWEN32)
+    with FakeTensorMode():
+        bounds = decode_step_bounds(Model(cfg, device="cpu"), [Q32_MAX_LEN] * Q32_ROWS)
+    mem_d, mem_p = dec["memory_analysis"], pre["memory_analysis"]
+    out = {"args": mem_d["argument_bytes"], "temp": mem_d["temp_bytes"],
+           "prefill_peak": mem_p["argument_bytes"] + mem_p["temp_bytes"],
+           "memory_s": dec["roofline"]["memory_s"], "hbm_bytes": dec["roofline"]["hbm_bytes"],
+           "bound_ms": bounds["weights"], "bound_bytes": bounds["read_bytes"]
+           + bounds["kv_bytes"], "seconds": time.perf_counter() - t0}
+    print(f"[qwen32] dry-run predictions before allocating (1 x 1 mesh, {out['seconds']:.1f} s "
+          f"on the host): argument bytes {out['args'] / 1e9:.3f} GB (bf16 weights, the KV cache "
+          f"of {Q32_ROWS} x {Q32_MAX_LEN}, tokens, lengths); traced decode temp "
+          f"{out['temp'] / 1e9:.3f} GB; traced peak of the prefill at {prefill_len} positions "
+          f"(weights, batch, the cache it makes, activations; depths {pre['trace_depths']}) "
+          f"{out['prefill_peak'] / 1e9:.3f} GB; analytic memory_s {out['memory_s'] * 1e3:.2f} ms ({out['hbm_bytes'] / 1e9:.2f} "
+          f"GB at the datasheet's 3.35 TB/s: the weights counted twice, as the reference's FSDP "
+          f"model does); decode_step_bounds {out['bound_ms']:.2f} ms ({out['bound_bytes'] / 1e9:.2f}"
+          f" GB)", flush=True)
+    return out
+
+
+def qwen32_phase(tr: dict) -> dict:
+    """Phase 11: the dry-run's predictions (``dryrun_predictions``), then
+    qwen3-32b through ``lm_serving`` at all 64 layers in bf16 (Q32_REQUESTS
+    requests, prompts uniform on 256-2,048, 16 new tokens, 8 slots,
+    max_len 2,088),
+    with lm_serving's gates (64 decode_attention launches a step, the kernel
+    against its plain version on the model's cache).  Gated: the bytes
+    allocated by init plus the cache's within ARG_GATE of the predicted
+    argument bytes (a check that the dry-run's argument bytes are the
+    model's own: both count the same parameters and cache shapes); the
+    peak within PEAK_BAND of the traced prefill's predicted peak (the
+    prediction of fit).  Printed, not gated: the peak against the traced
+    decode step's and the card's memory; the decode step's median against
+    the analytic memory term and decode_step_bounds; phase 10's gemma2-2b
+    train step against ``analytic_cost`` of train_1024 on a (1, 1) mesh."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.analytics import analytic_cost
+    from repro_torch.launch.roofline import HW, analyse
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    plens = np.random.default_rng(0).integers(256, 2049, Q32_REQUESTS)
+    pred = dryrun_predictions(int(plens.max()))
+    out = lm_serving(QWEN32, prompt_lens=plens, slots=Q32_SLOTS, new=Q32_NEW,
+                     max_len=Q32_MAX_LEN, tag="qwen32", idle_steps=4)
+    cfg = out["model"].cfg
+    check(cfg.n_layers == 64 and cfg.d_model == 5120 and cfg.dtype == "bfloat16",
+          f"[qwen32] served {cfg.n_layers} layers of width {cfg.d_model} in {cfg.dtype}")
+    measured = out["init_alloc"] + out["cache_nbytes"][0] + 2 * 4 * Q32_ROWS
+    gap = abs(measured - pred["args"]) / pred["args"]
+    check(gap <= ARG_GATE, f"[qwen32] allocated weights + cache {measured} bytes against the "
+                           f"dry-run's argument bytes {pred['args']}: {gap:.4f} apart")
+    total = torch.cuda.get_device_properties(0).total_memory
+    peak = out["peak_gb"] * 1e9
+    peak_gap = peak / pred["prefill_peak"] - 1
+    check(abs(peak_gap) <= PEAK_BAND,
+          f"[qwen32] peak {peak} bytes against the traced prefill's predicted peak "
+          f"{pred['prefill_peak']}: {peak_gap:+.4f} apart")
+    print(f"[qwen32] argument bytes consistent: allocated by init {out['init_alloc'] / 1e9:.3f} "
+          f"GB + cache {out['cache_nbytes'][0] / 1e9:.3f} GB + tokens and lengths = "
+          f"{measured / 1e9:.3f} GB against the dry-run's {pred['args'] / 1e9:.3f} GB "
+          f"({gap:.2e} apart, gate {ARG_GATE}); fit: peak {peak / 1e9:.3f} GB against the "
+          f"traced prefill's predicted {pred['prefill_peak'] / 1e9:.3f} GB ({peak_gap:+.4f}, "
+          f"gate {PEAK_BAND}) and the traced decode step's "
+          f"{(pred['args'] + pred['temp']) / 1e9:.3f} GB, of the card's {total / 1e9:.3f} GB",
+          flush=True)
+    med = out["step_ms"]
+    print(f"[qwen32] decode step median {med:.3f} ms: / analytic memory_s "
+          f"{pred['memory_s'] * 1e3:.2f} ms = {med / (pred['memory_s'] * 1e3):.3f}; / "
+          f"decode_step_bounds {pred['bound_ms']:.2f} ms = {med / pred['bound_ms']:.3f}; "
+          f"lm_serving's own bound at the median step's lengths {out['bound_ms']:.3f} ms "
+          f"({card_line()})", flush=True)
+    g_cfg = get_config(GEMMA)
+    ac = analytic_cost(g_cfg, ShapeSpec("train_1024", TRAIN_SEQ, TRAIN_BATCH, "train"), 1, 1)
+    terms = analyse({}, 1, analytic=ac)
+    step = tr["step_ms"]
+    print(f"[qwen32] phase 10's gemma2-2b train step {step:.1f} ms beside analytic_cost "
+          f"(train_1024, 1 x 1): {ac.flops / 1e12:.2f} TFLOP, compute_s "
+          f"{terms.compute_s * 1e3:.2f} ms at the datasheet's {HW['peak_flops'] / 1e12:.1f} "
+          f"TFLOP/s (step / that {step / (terms.compute_s * 1e3):.3f}), "
+          f"{ac.hbm_bytes / 1e9:.2f} GB of traffic, memory_s {terms.memory_s * 1e3:.2f} ms; "
+          f"train_step_bound {tr['bound']['bound_ms']:.1f} ms (step / that "
+          f"{step / tr['bound']['bound_ms']:.3f})", flush=True)
+    del out["model"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(pred=pred, measured_args=measured, arg_gap=gap, peak_gap=peak_gap,
+               total_memory=total,
+               seconds=time.perf_counter() - t_phase)
+    print(f"[qwen32] phase 11 took {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -3334,6 +3525,7 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     cli_phase()
     print(f"[cli] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    served["11"] = qwen32_phase(tr)
     print(f"[smoke] phase 10 (training) took {tr['seconds']:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)

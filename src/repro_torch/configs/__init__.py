@@ -1,24 +1,30 @@
 """Config registry: ``get_config("<arch-id>")``.
 
 Holds the configurations the port can serve: the dense family (qwen3-14b,
-gemma2-2b with its sliding windows and softcaps), the MoE family
+qwen3-32b, gemma2-2b with its sliding windows and softcaps; deepseek-67b,
+whose 134.8 GB of bf16 weights do not fit one card, is for the dry-run and
+reduced runs), the MoE family
 (olmoe-1b-7b; llama4-scout, whose ~109B parameters do not fit one card,
 served reduced), the hybrid family (hymba-1.5b: attention beside a Mamba
 head, sliding windows but for three global layers) and the ssm family
 (xlstm-1.3b: sLSTM and mLSTM blocks).  The encdec and vlm architectures
 join with their families (ROADMAP Queue 1); ``models.model.Model`` refuses
-them.
+them.  ``paper_ann`` holds the paper's filtered-ANN dataset configurations
+(``ANN_CONFIGS``), as the reference's does; it is not in the registry.
 """
 from .base import ModelConfig, SHAPES, ShapeSpec
 
 from .gemma2_2b import CONFIG as _gemma2_2b
 from .qwen3_14b import CONFIG as _qwen3_14b
+from .qwen3_32b import CONFIG as _qwen3_32b
+from .deepseek_67b import CONFIG as _deepseek_67b
 from .olmoe_1b_7b import CONFIG as _olmoe
 from .llama4_scout_17b_a16e import CONFIG as _llama4
 from .hymba_1_5b import CONFIG as _hymba
 from .xlstm_1_3b import CONFIG as _xlstm
 
-REGISTRY = {c.name: c for c in [_gemma2_2b, _qwen3_14b, _olmoe, _llama4, _hymba, _xlstm]}
+REGISTRY = {c.name: c for c in [_gemma2_2b, _qwen3_14b, _qwen3_32b, _deepseek_67b, _olmoe,
+                                 _llama4, _hymba, _xlstm]}
 
 ARCH_IDS = sorted(REGISTRY)
 

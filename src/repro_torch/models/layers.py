@@ -199,7 +199,8 @@ def moe_init(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Optional[floa
             "w_up": ((e, d, f), d ** -0.5), "w_down": ((e, f, d), f ** -0.5)}
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, group=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k MoE with per-sequence capacity, as the reference's
     ``moe_ffn``: router softmax in fp32, top k (equal probabilities in
     ascending expert order, ``jax.lax.top_k``'s rule) renormalised; each row
@@ -208,7 +209,13 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.T
     K / E)) slots in position order and a padded batch's pad tail is what
     overflows; the (B, E, C, D) buffer runs through the experts' SwiGLU as
     three batched einsums; each token sums its K weighted slots (in its
-    top-k order, without atomics).  Returns (output, Switch aux loss)."""
+    top-k order, without atomics).  Returns (output, Switch aux loss).
+
+    ``group``: a process group whose ranks each hold an equal share of the
+    batch's rows.  The routing density is then averaged over it, so that
+    the mean of the ranks' aux losses is the whole batch's (the product of
+    the batch's density and its mean probabilities, as GSPMD computes it
+    over the global batch), and so are their gradients."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k_experts
     dt = x.dtype
@@ -222,6 +229,11 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.T
     # load-balance aux loss (Switch-style) over the whole batch
     density = torch.zeros(e, device=dev).index_add_(
         0, topi.reshape(-1), torch.ones(b * s * k, device=dev)) / (b * s * k)
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(density, group=group)
+        density = density / dist.get_world_size(group)
     aux = e * torch.sum(density * probs.mean((0, 1)))
 
     cap = int(max(1, cfg.capacity_factor * s * k / e))

@@ -43,6 +43,10 @@ Differences from the reference, each giving the same numbers:
   ``mlstm``) likewise; it returns the same tensors, the reference a new
   cache.
 * The layer windows are a Python list (``_windows``), not a scanned array.
+* ``input_specs`` returns ``FakeTensorMode`` tensors on the model's device
+  (the dry-run's model is itself fake, on the CPU) in place of
+  ``jax.ShapeDtypeStruct``: they hold no memory, and the kernel wrappers
+  take their plain branch on them, so a traced step launches nothing.
 
 The encdec and vlm families raise ``NotImplementedError`` at
 construction, never mis-serve.
@@ -57,7 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeSpec
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.ops import decode_attention
 from . import ssm
@@ -132,7 +136,17 @@ def _vector(d: int, device, dtype) -> nn.Parameter:
     return _zeros(d, device, dtype)
 
 
-class DecoderLayer(nn.Module):
+class _Unit(nn.Module):
+    """A layer or group whose weights the model reads directly; training
+    runs it through its module call (``unit(fn, *args)`` is ``fn(*args)``),
+    so that hooks on the module see each use of its weights: FSDP2 gathers
+    a sharded unit's weights there and reduce-scatters their grads."""
+
+    def forward(self, fn, *args):
+        return fn(*args)
+
+
+class DecoderLayer(_Unit):
     """One decoder layer's weights: ``ln1``, ``ln2``, ``attn``, ``ffn`` (and
     ``ln1b``/``ln2b`` with post-norms).  An MoE layer's ``ffn`` holds the
     router and the experts' (E, ...) weights, and ``ffn.shared`` with a
@@ -157,7 +171,7 @@ class DecoderLayer(nn.Module):
             self.ln2b = _vector(d, device, dtype)
 
 
-class XlstmGroup(nn.Module):
+class XlstmGroup(_Unit):
     """One xLSTM group: an sLSTM block (``slstm``, ``slstm_ln``) and
     ``slstm_every - 1`` mLSTM blocks (``mlstm.<j>``, and their norm scales
     stacked in ``mlstm_ln`` (every - 1, D), as the reference stacks them)."""
@@ -179,6 +193,10 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.dtype]
+        # the process group a data-parallel train step splits the batch over
+        # (make_train_step sets it): the MoE layers average their routing
+        # density over it
+        self.data_group = None
         dev, dt = self.device, self.dtype
         # allocated as zeros here; init() draws the weights, or carry loads them
         self.embed = nn.Parameter(torch.zeros((cfg.vocab_size, cfg.d_model), device=dev, dtype=dt),
@@ -230,8 +248,12 @@ class Model(nn.Module):
         reference's parameters are: a bf16 model then computes in bf16 from
         casts made at each use, and its gradients come back in fp32.  A
         serving model keeps ``cfg.dtype`` storage and frozen weights.
-        Returns ``self``."""
-        self.float()
+        Returns ``self``.  Each weight is re-registered as a new fp32
+        parameter (not swapped in place, which fake tensors refuse)."""
+        for mod in self.modules():
+            for name, p in list(mod.named_parameters(recurse=False)):
+                if p.dtype != torch.float32:
+                    mod.register_parameter(name, nn.Parameter(p.detach().float()))
         self.requires_grad_(True)
         return self
 
@@ -292,7 +314,7 @@ class Model(nn.Module):
         cfg = self.cfg
         h = rms_norm(x, lp.ln2, cfg.norm_eps)
         if cfg.is_moe:
-            f, a = moe_ffn(lp.ffn, h, cfg)
+            f, a = moe_ffn(lp.ffn, h, cfg, self.data_group)
             aux = aux + a
         else:
             f = mlp(lp.ffn, h)
@@ -307,7 +329,7 @@ class Model(nn.Module):
         ``cache``'s states, updated in place (``step`` True)."""
         for gi, grp in enumerate(self.blocks):
             if cache is None:
-                x = self._remat(self._xlstm_group, gi, grp, x)
+                x = grp(self._remat, self._xlstm_group, gi, grp, x)
             else:
                 x = self._xlstm_group(gi, grp, x, cache, step)
         return x
@@ -340,7 +362,7 @@ class Model(nn.Module):
             return self._xlstm(x), 0.0
         aux = 0.0
         for lp, w in zip(self.layers, self.windows):
-            x, aux = self._remat(self._layer, lp, w, x, aux, positions)
+            x, aux = lp(self._remat, self._layer, lp, w, x, aux, positions)
         return x, aux
 
     def _layer(self, lp: DecoderLayer, w: int, x: torch.Tensor, aux, positions: torch.Tensor):
@@ -543,3 +565,29 @@ class Model(nn.Module):
                 cache["ssm_h"][i], cache["ssm_conv"][i] = st["h"], st["conv"]
             x, _ = self._ffn_block(lp, x)
         return self._logits(x)[:, 0], cache
+
+    # ==================================================================
+    # input specs for the dry-run (no allocation)
+    # ==================================================================
+    def input_specs(self, shape: ShapeSpec, mode=None) -> Dict:
+        """Stand-ins for every input of the step function of this shape
+        cell, as the reference's: train -> {"batch": tokens, labels};
+        prefill -> {"batch": tokens}; decode -> {"cache", "tokens",
+        "lengths"} (one token against a cache of ``seq_len`` positions, from
+        ``init_cache``).  Tokens and lengths are int32.  The tensors are
+        fake (``FakeTensorMode``; ``mode``, else the mode of the model's
+        own fake weights, else a new one) on the model's device."""
+        from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+
+        if mode is None:
+            mode = self.embed.fake_mode if isinstance(self.embed, FakeTensor) else FakeTensorMode()
+        b, s = shape.global_batch, shape.seq_len
+        i32 = dict(dtype=torch.int32, device=self.device)
+        with mode:
+            if shape.kind == "train":
+                return {"batch": {"tokens": torch.empty((b, s), **i32),
+                                  "labels": torch.empty((b, s), **i32)}}
+            if shape.kind == "prefill":
+                return {"batch": {"tokens": torch.empty((b, s), **i32)}}
+            return {"cache": self.init_cache(b, s), "tokens": torch.empty((b,), **i32),
+                    "lengths": torch.empty((b,), **i32)}

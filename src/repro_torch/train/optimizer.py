@@ -14,7 +14,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-__all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update"]
+__all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update", "sum_of_squares"]
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -42,14 +42,22 @@ def adamw_init(params: Tensors) -> AdamWState:
                       v={k: z.clone() for k, z in zeros.items()})
 
 
+def sum_of_squares(grads: Tensors) -> torch.Tensor:
+    """The squared global norm of ``grads``, a 0-d fp32 tensor."""
+    return torch.stack([torch.sum(g.float() * g.float()) for g in grads.values()]).sum()
+
+
 @torch.no_grad()
 def adamw_update(params: Tensors, grads: Tensors, state: AdamWState, cfg: AdamWConfig,
-                 lr_scale) -> Tuple[Tensors, AdamWState, torch.Tensor]:
+                 lr_scale, sq_norm=None) -> Tuple[Tensors, AdamWState, torch.Tensor]:
     """One AdamW step.  Returns (params, new_state, grad_norm): ``params``
     and the state's ``m``/``v`` are the given tensors, updated in place;
-    ``grads`` are left as they were."""
-    gnorm = torch.sqrt(torch.stack([torch.sum(g.float() * g.float()) for g in grads.values()])
-                       .sum() + 1e-16)
+    ``grads`` are left as they were.  ``sq_norm``, the squared norm of the
+    whole gradient, replaces that of ``grads`` where they are one shard of
+    it (a data-parallel step clips by the global norm)."""
+    if sq_norm is None:
+        sq_norm = sum_of_squares(grads)
+    gnorm = torch.sqrt(sq_norm + 1e-16)
     scale = torch.clamp_max(cfg.clip_norm / gnorm, 1.0) if cfg.clip_norm > 0 else 1.0
     step = state.step + 1
     stepf = step.to(torch.float32)

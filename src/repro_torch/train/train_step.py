@@ -16,7 +16,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import torch
 
 from ..models.model import Model
-from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update
+from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update, sum_of_squares
 from . import schedule as schedules
 
 __all__ = ["TrainState", "make_train_step", "init_train_state"]
@@ -41,11 +41,17 @@ def _micro(batch: Dict, i: int, n: int) -> Dict:
     return {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view of it); any other tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def make_train_step(
     model: Model,
     opt_cfg: AdamWConfig = AdamWConfig(),
     schedule: Callable = schedules.warmup_cosine,
     grad_accum: int = 1,
+    group=None,
 ):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
@@ -54,36 +60,77 @@ def make_train_step(
     by their count, as the reference's scan does.  ``metrics`` holds 0-d
     tensors ``loss``, ``grad_norm``, ``lr_scale``, ``ce``, ``aux`` and
     ``tokens``; with microbatches ``loss``, ``ce`` and ``aux`` are their
-    means and ``tokens`` their sum."""
+    means and ``tokens`` their sum.
 
-    def grads_of(params: Dict[str, torch.Tensor], batch: Dict):
-        loss, metrics = model.loss(batch)
-        names = list(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
-        grads = {k: torch.zeros_like(params[k]) if g is None else g.float()
-                 for k, g in zip(names, grads)}
-        return loss.detach(), {k: torch.as_tensor(v, device=loss.device).detach()
-                               for k, v in metrics.items()}, grads
+    ``group``: the process group over which ``model`` is data-parallel
+    (FSDP2, as ``launch.train.make_sharded_train_step`` shards it).  The
+    step then takes the GLOBAL batch, the same on every rank, and runs its
+    rank's rows of each microbatch (all of them where the ranks do not
+    divide it, as the reference's ``batch_sharding`` replicates it).  Each
+    rank's cross-entropy is weighted by its share of the tokens and the
+    MoE layers average their routing density over ``group``
+    (``Model.data_group``), so that FSDP2's mean of the ranks' gradients
+    is the gradient of the whole batch's loss; the clip uses the norm over
+    every shard, and the metrics are the whole batch's."""
+    if group is None:
+        n, rank = 1, 0
+    else:
+        import torch.distributed as dist
+
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+    model.data_group = group
+
+    def all_sum(t: torch.Tensor) -> torch.Tensor:
+        t = t.detach().clone()
+        if group is not None:
+            dist.all_reduce(t, group=group)
+        return t
+
+    def own_rows(batch: Dict) -> Dict:
+        b = len(batch["tokens"])
+        if n == 1 or b % n:
+            return batch
+        return {k: v[rank * b // n:(rank + 1) * b // n] for k, v in batch.items()}
+
+    def backward(batch: Dict) -> Dict[str, torch.Tensor]:
+        """Adds this rank's part of the gradient of ``batch``'s loss into
+        each parameter's ``.grad``; returns the batch's loss metrics."""
+        _, met = model.loss(own_rows(batch))
+        tokens = all_sum(met["tokens"])
+        share = met["tokens"].float() / tokens.float()
+        aux = torch.as_tensor(met["aux"], dtype=torch.float32, device=tokens.device)
+        (met["ce"] * (n * share) + 0.01 * aux).backward()
+        ce, aux = all_sum(met["ce"] * share), all_sum(aux) / n
+        return {"loss": ce + 0.01 * aux, "ce": ce, "aux": aux, "tokens": tokens}
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        for p in state.params.values():
+            p.grad = None
         if grad_accum == 1:
-            loss, metrics, grads = grads_of(state.params, batch)
+            metrics = backward(batch)
         else:
-            loss, metrics, grads = grads_of(state.params, _micro(batch, 0, grad_accum))
+            metrics = backward(_micro(batch, 0, grad_accum))
             for i in range(1, grad_accum):
-                l_i, m_i, g_i = grads_of(state.params, _micro(batch, i, grad_accum))
-                for k, g in g_i.items():
-                    grads[k].add_(g)
-                loss = loss + l_i
+                m_i = backward(_micro(batch, i, grad_accum))
                 metrics = {k: metrics[k] + m_i[k] for k in metrics}
-                del g_i
-            for g in grads.values():
-                g.div_(grad_accum)
-            loss = loss / grad_accum
             metrics = {k: v if k == "tokens" else v / grad_accum for k, v in metrics.items()}
-        lr_scale = schedule(state.opt.step)
-        params, opt, gnorm = adamw_update(state.params, grads, state.opt, opt_cfg, lr_scale)
-        out = {"loss": loss, "grad_norm": gnorm, "lr_scale": lr_scale, **metrics}
-        return TrainState(params=params, opt=opt), out
+        with torch.no_grad():
+            params = {k: _local(p) for k, p in state.params.items()}
+            grads = {k: torch.zeros_like(params[k]) if p.grad is None else _local(p.grad).float()
+                     for k, p in state.params.items()}
+            if grad_accum > 1:
+                for g in grads.values():
+                    g.div_(grad_accum)
+            opt = AdamWState(step=state.opt.step,
+                             m={k: _local(t) for k, t in state.opt.m.items()},
+                             v={k: _local(t) for k, t in state.opt.v.items()})
+            sq_norm = None if group is None else all_sum(sum_of_squares(grads))
+            lr_scale = schedule(state.opt.step)
+            _, opt, gnorm = adamw_update(params, grads, opt, opt_cfg, lr_scale, sq_norm=sq_norm)
+        for p in state.params.values():
+            p.grad = None
+        out = {"loss": metrics.pop("loss"), "grad_norm": gnorm, "lr_scale": lr_scale, **metrics}
+        return TrainState(params=state.params,
+                          opt=AdamWState(step=opt.step, m=state.opt.m, v=state.opt.v)), out
 
     return train_step

@@ -1,0 +1,172 @@
+"""The port's dry-run against the JAX package's arithmetic, on the CPU.
+
+* on a fake (4, 2) mesh, for the reduced gemma2 and olmoe (train,
+  prefill, decode): every key of the reference's record,
+  ``argument_bytes`` equal to the local shard bytes of the reference's own
+  spec arithmetic at the port's stored types, the analytic roofline equal
+  to the reference's ``analytic_cost``, train FLOPs within the
+  reference's 7-12 x N·D band (``tests/test_roofline.py``), decode GEMM
+  FLOPs within 2 % of the analytic projection and head (MoE: every expert
+  over its slots, the port's dense dispatch);
+* a refused family raises and leaves no process group behind;
+* the CLI for qwen3-32b decode_32k on the 16 x 16 mesh writes a record
+  with every key of the reference's, and the report CLI renders it.
+"""
+import dataclasses
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import pytest
+
+from repro.configs import ShapeSpec as REF_SHAPE_SPEC
+from repro.configs import get_config as ref_get_config
+from repro.dist import sharding as ref_sharding
+from repro.launch import roofline as ref_roofline
+from repro.launch.analytics import analytic_cost as ref_analytic_cost
+from repro.models import Model as RefModel
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.dist.sharding import reference_path
+from repro_torch.launch import dryrun, report
+from repro_torch.launch.analytics import analytic_cost
+from repro_torch.models import Model
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+REF_RECORD_KEYS = {"arch", "shape", "mesh", "chips", "status", "lower_s", "compile_s",
+                   "memory_analysis", "cost_flops", "cost_bytes", "roofline", "n_params",
+                   "n_active_params", "model_flops"}
+REF_MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes", "generated_code_bytes"}
+ROOFLINE_KEYS = {f.name for f in dataclasses.fields(ref_roofline.RooflineTerms)}
+
+
+def _expected_argument_bytes(ref_cfg, cfg, shape, mesh):
+    """One device's argument bytes by the reference's own spec arithmetic
+    (its ``param_sharding``, ``batch_sharding`` and ``cache_sharding`` on
+    an abstract mesh, ``shard_shape``), at the port's stored types: bf16
+    weights (fp32 where the port keeps them so) in serving, fp32 masters,
+    m and v and an int32 step in training."""
+    amesh = jax.sharding.AbstractMesh(mesh, ("data", "model"))
+    ref = RefModel(ref_cfg)
+    params = jax.eval_shape(lambda: ref.init(jax.random.PRNGKey(0)))
+    elem = {reference_path(name)[0]: 4 if shape.kind == "train" else t.element_size()
+            for name, t in Model(cfg, device="cpu").named_parameters()}
+    flat = jax.tree_util.tree_flatten_with_path(params)[0]
+    shards = jax.tree.leaves(ref_sharding.param_sharding(amesh, params))
+    total = sum(math.prod(s.shard_shape(leaf.shape)) * elem[ref_sharding._path_str(path)]
+                for (path, leaf), s in zip(flat, shards))
+    if shape.kind == "train":
+        total = 3 * total + 4
+    specs = ref.input_specs(REF_SHAPE_SPEC(shape.name, shape.seq_len, shape.global_batch,
+                                           shape.kind))
+    b = shape.global_batch
+    if shape.kind == "decode":
+        trees = [(specs["cache"], ref_sharding.cache_sharding(amesh, specs["cache"], b)),
+                 *[(specs[k], ref_sharding.batch_sharding(amesh, specs[k], b))
+                   for k in ("tokens", "lengths")]]
+    else:
+        trees = [(specs["batch"], ref_sharding.batch_sharding(amesh, specs["batch"], b))]
+    for tree, sh in trees:
+        total += sum(math.prod(s.shard_shape(t.shape)) * jnp.dtype(t.dtype).itemsize
+                     for t, s in zip(jax.tree.leaves(tree), jax.tree.leaves(sh)))
+    return total
+
+
+DRY_SHAPES = [ShapeSpec("train_64", 64, 8, "train"), ShapeSpec("prefill_64", 64, 8, "prefill"),
+              ShapeSpec("decode_96", 96, 8, "decode")]
+
+
+@pytest.fixture(scope="module")
+def dry_records():
+    out = {}
+    for arch in ("gemma2-2b", "olmoe-1b-7b"):
+        for shape in DRY_SHAPES:
+            out[arch, shape.kind] = dryrun.cell_record(get_config(arch).reduced(), shape,
+                                                       mesh_shape=(4, 2), arch=arch)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "olmoe-1b-7b"])
+def test_dryrun_record_keys_and_argument_bytes(dry_records, arch, kind):
+    rec = dry_records[arch, kind]
+    assert rec["status"] == "ok" and rec["traced"] and rec["mesh"] == "4x2" and rec["chips"] == 8
+    assert REF_RECORD_KEYS <= set(rec)
+    assert set(rec["memory_analysis"]) == REF_MEMORY_KEYS
+    assert set(rec["roofline"]) == ROOFLINE_KEYS
+    assert rec["trace_batch"] == 2 and "model axis (2) is not applied" in rec["temp_scope"]
+    assert rec["cost_flops"] > 0 and rec["cost_bytes"] > 0 and rec["memory_analysis"][
+        "temp_bytes"] > 0
+    shape = next(s for s in DRY_SHAPES if s.kind == kind)
+    ref_cfg, cfg = ref_get_config(arch).reduced(), get_config(arch).reduced()
+    assert rec["memory_analysis"]["argument_bytes"] == _expected_argument_bytes(
+        ref_cfg, cfg, shape, (4, 2))
+    ac = ref_analytic_cost(ref_cfg, REF_SHAPE_SPEC(shape.name, shape.seq_len,
+                                                   shape.global_batch, kind), 8 // 2, 2)
+    assert rec["roofline"]["flops"] == ac.flops and rec["roofline"]["coll_bytes"] == \
+        ac.coll_bytes_per_dev
+
+
+def test_dryrun_train_flops_in_the_reference_band(dry_records):
+    """Dense train FLOPs ~ 8 N D (6ND + the recomputed forward) + attention:
+    inside the reference's 7-12 x N·D band (tests/test_roofline.py), D the
+    traced device's tokens."""
+    cfg = get_config("gemma2-2b").reduced()
+    rec = dry_records["gemma2-2b", "train"]
+    nd = cfg.n_params() * rec["trace_batch"] * DRY_SHAPES[0].seq_len
+    assert 7.0 * nd < rec["cost_flops"] < 12.0 * nd
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "olmoe-1b-7b"])
+def test_dryrun_decode_gemm_flops(dry_records, arch):
+    """Traced decode FLOPs less the plain attention's two einsums over the
+    cache (4 b h dh S a layer) equal the analytic projection and head flops
+    within 2 %.  The port's MoE runs every expert over its C slots at
+    decode (the reference's dense dispatch), so there the experts' GEMMs
+    count E x C, not top_k, SwiGLUs a row."""
+    cfg = get_config(arch).reduced()
+    rec, shape = dry_records[arch, "decode"], DRY_SHAPES[2]
+    b, s, d = rec["trace_batch"], shape.seq_len, cfg.d_model
+    attn = cfg.n_layers * 4 * b * cfg.n_heads * cfg.dh * s
+    proj = analytic_cost(cfg, shape, 4, 2).detail["proj_flops_per_token_per_layer"]
+    if cfg.is_moe:
+        cap = int(max(1, cfg.capacity_factor * 1 * cfg.top_k_experts / cfg.n_experts))
+        proj += 6 * d * cfg.d_ff * (cfg.n_experts * cap - cfg.top_k_experts)
+    want = cfg.n_layers * proj * b + 2 * d * cfg.vocab_size * b
+    assert abs(rec["cost_flops"] - attn - want) <= 0.02 * want
+
+
+def test_dryrun_refused_family_is_an_error(tmp_path):
+    rec = dryrun.run_cell("gemma2-2b", "decode_32k", False, str(tmp_path), mesh_shape=(1, 1))
+    assert rec["status"] == "ok"
+    bad = dataclasses.replace(get_config("qwen3-14b").reduced(), family="encdec", n_enc_layers=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dryrun.cell_record(bad, DRY_SHAPES[2], mesh_shape=(1, 1))
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+
+
+def test_dryrun_and_report_cli(tmp_path):
+    """The acceptance command on the CPU: qwen3-32b decode_32k on the 16 x
+    16 mesh writes a record with every key of the reference's, and the
+    report renders it."""
+    env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                          "qwen3-32b", "--shape", "decode_32k", "--mesh", "single", "--out",
+                          str(tmp_path)], capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = report.load(str(tmp_path))
+    assert len(rec) == 1 and REF_RECORD_KEYS <= set(rec[0]) and rec[0]["status"] == "ok"
+    # every weight of the 16 x 16 mesh's plan (bf16) and 8 rows of the cache a device
+    cfg = get_config("qwen3-32b")
+    cache = 2 * cfg.n_layers * 8 * cfg.n_kv_heads * 32_768 * cfg.dh * 2
+    assert rec[0]["memory_analysis"]["argument_bytes"] > cache
+    shown = subprocess.run([sys.executable, "-m", "repro_torch.launch.report", "--dir",
+                            str(tmp_path)], capture_output=True, text=True, env=env, timeout=120)
+    assert shown.returncode == 0, shown.stderr
+    assert "| qwen3-32b | decode_32k | " in shown.stdout and "fits 80G" in shown.stdout
