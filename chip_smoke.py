@@ -39,6 +39,12 @@ Phases, each printed as it runs:
      beside the bf16 kernel's at the same shape, the plain version's,
      dequantize_kv + SDPA's (two calls) and the bound of dh + 4 bytes a
      position, head and tensor;
+  3f. the bf16 decode kernel against the plain version at the encdec and
+     vlm serving shapes: seamless-m4t's cross-attention (B 8, KV 16, GQ 1,
+     dh 64, S = F = 1,024, every row full), its self-attention (S 128,
+     ragged) and internvl2's (KV 8, GQ 8, dh 128, S 2,320, ragged);
+     repeated calls bitwise equal, one CUDA kernel a call; kernel, plain
+     and SDPA times beside the bound;
   4. the filtered-ANN main path through its public entry points on the
      arxiv dataset at the paper's full size (2.14M x 384): build -> fit ->
      query / batch_query -> ground_truth; then 256 queries under one shared
@@ -161,6 +167,25 @@ Phases, each printed as it runs:
      group) on 4 of 600 (no multiple of the 256-step chunk), equal-length
      batches; qwen3-14b at depth 4 with the int8 cache, batch = solo only
      (teacher forcing never reads the quantised cache);
+  12. seamless-m4t-large-v2 (24 encoder + 24 decoder layers, d_model
+     1,024) at full width and depth in bf16 through Model.prefill and
+     Model.decode_step (ServeEngine serves token prompts only): 16 requests
+     of 1,024 stub frames (N(0, 1) from a numpy seed) in two batches of 8,
+     prompts of 4-32 tokens, 64 new, max_len 128; decode launches equal
+     48 x steps (self- and cross-attention in each layer), every logit
+     finite and every token in the vocabulary, the kernel against its plain
+     version on layer 0's self and cross K/V; prefill s and the encoder's
+     share by CUDA events, the step beside decode_step_bounds (which the
+     script checks against a hand count before it first uses the card),
+     idle share, CUDA kernels and kernel ms a step (self and cross);
+  12b. internvl2-76b at full width and 8 of its 80 layers (all 80 are 141
+     GB of bf16 weights): 8 requests of 256 stub patches and prompts of
+     256-2,048 tokens, 16 new, max_len 2,320 (the lengths count the
+     prefix); launches equal 8 x steps; the same figures;
+  12c. fp32 identities at full width: seamless at 4 + 4 layers, internvl2
+     at 2, 4 ragged requests each, 16 new: batch tokens equal solo tokens
+     and the teacher-forced argmax (frames or patches included) but at
+     near-ties;
   10. training (after every earlier model and engine is freed): 10a
      gemma2-2b at full width, 2 layers, fp32: Model.loss's ce equals the
      full-logits CE, and grad_accum 2 equals 1 (loss, first moments); 10b
@@ -197,13 +222,13 @@ Phases, each printed as it runs:
      result line {"ok": true, "device": {...}}.
 
 Each path's kernel launch counts are set to 0 just before it and read
-just after it (phases 4, 4b, 4c, 4d, 4e, 6, 6b-6f, 7, 9, 11; 4c's routed serving, its
+just after it (phases 4, 4b, 4c, 4d, 4e, 6, 6b-6f, 7, 9, 11, 12, 12b; 4c's routed serving, its
 spanning-head serving and its live serving each; 4d and 4e each as a
 whole, ground truth and rebuilds included, and their serving runs alone:
 in 4e the runtime's own batch_query calls, never the checks of them);
 masked_l2_topk's launches in the kernels line are the sum over phases 4,
 4b, 4c, 4d and 4e (serving runs), decode_attention's over phases 6,
-6b-6f (int8 calls included) and 11.  Any failed check raises, so the script
+6b-6f (int8 calls included), 11, 12 and 12b.  Any failed check raises, so the script
 exits non-zero and prints no result.  It needs a CUDA card and the repo's
 ``src/`` beside it, and imports nothing of the JAX package.
 """
@@ -2513,6 +2538,75 @@ def int8_timing(q, k, v, ks, vs, kb, vb, length, lengths, window, cap, kv, gq, d
 
 
 # ----------------------------------------------------------------------
+# phase 3f: the decode kernel at the encdec and vlm serving shapes
+# ----------------------------------------------------------------------
+SEAMLESS = "seamless-m4t-large-v2"
+INTERNVL = "internvl2-76b"
+# (tag, B, KV, GQ, S, dh, every row full): seamless's cross-attention over
+# its 1,024 frames, its self-attention over a 128-position cache, and
+# internvl2's self-attention over 256 patches + a 2,048-token prompt + 16
+FRONTEND_SHAPES = (("seamless-cross", 8, 16, 1, 1024, 64, True),
+                   ("seamless-self", 8, 16, 1, 128, 64, False),
+                   ("internvl2-self", 8, 8, 8, 2320, 128, False))
+
+
+def decode_frontend_checks() -> dict:
+    """Phase 3f: the bf16 decode kernel against its plain version at the
+    shapes phases 12 and 12b give it (GQ 1 at dh 64, and a cache whose rows
+    are all full, had not run before): repeated calls bitwise equal, one
+    CUDA kernel a call; kernel, plain and SDPA times beside the bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.decode_attention import chunk_positions, decode_attention_cuda
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    rng = np.random.default_rng(6)
+    rows, max_err = {}, 0.0
+    for tag, b, kv, gq, s, dh, full in FRONTEND_SHAPES:
+        chunk = chunk_positions(s, dh, 2)
+        lengths = [s] * b if full else ragged_lengths(b, s, rng, chunk)
+        q = torch.randn((b, kv, gq, dh), generator=g, device=dev)
+        k = torch.randn((b, kv, s, dh), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((b, kv, s, dh), generator=g, device=dev).to(torch.bfloat16)
+        length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        out = decode_attention_cuda(q, k, v, length)
+        torch.cuda.synchronize()
+        ref = decode_attention_ref(q, k, v, length)
+        err = float((out - ref).abs().max())
+        what = f"{tag}: B={b} KV={kv} GQ={gq} S={s} dh={dh} bf16 chunk {chunk}"
+        check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL), f"decode_attention {what}: err {err}")
+        check(torch.equal(decode_attention_cuda(q, k, v, length), out),
+              f"decode_attention {what}: a repeated call differs")
+        max_err = max(max_err, err)
+        wall, on_card, per_call = time_decode_calls(
+            {"kernel": lambda: decode_attention_cuda(q, k, v, length),
+             "plain": lambda: decode_attention_ref(q, k, v, length),
+             "sdpa": lambda: sdpa_call(q, k, v, length)}, 10, what)
+        bound, by = decode_bound(lengths, s, kv, gq, dh, 2)
+        rows[tag] = dict(ms=wall["kernel"], device_ms=on_card["kernel"], plain_ms=wall["plain"],
+                         plain_device_ms=on_card["plain"], library_ms=wall["sdpa"],
+                         library_device_ms=on_card["sdpa"], bound_ms=bound, bound_by=by,
+                         max_abs_err=err, shape={"B": b, "KV": kv, "GQ": gq, "S": s, "dh": dh,
+                                                 "kv_dtype": "bf16",
+                                                 "positions": sum(lengths)})
+        print(f"[decode-frontend] {what}, lengths {lengths[:4]}: kernel {wall['kernel']:.4f} ms "
+              f"(device {on_card['kernel']:.4f}), plain {wall['plain']:.4f} "
+              f"({on_card['plain']:.4f}), sdpa {wall['sdpa']:.4f} ({on_card['sdpa']:.4f}), bound "
+              f"{bound:.6g} ms ({by}); device / bound {on_card['kernel'] / bound:.3f}; "
+              f"max_abs_err {err:.3g}", flush=True)
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"[decode-frontend] every shape within rtol=atol=2e-4 of the plain version, repeated "
+          f"calls equal, one CUDA kernel a call; phase 3f took {secs:.1f} s", flush=True)
+    return {"rows": rows, "max_abs_err": max_err}
+
+
+# ----------------------------------------------------------------------
 # phases 6, 6b, 6c: LM serving at full width and depth
 # ----------------------------------------------------------------------
 GEMMA = "gemma2-2b"
@@ -2539,27 +2633,66 @@ def state_bytes(cfg, b: int) -> int:
 
 def decode_step_bounds(model, step_lengths) -> dict:
     """The least time of one decode step, in ms at 3.35 TB/s, for a step
-    whose rows attend to ``step_lengths`` positions: every weight the step
-    reads once (the embedding only as a tied head; a gathered row is
-    nothing) plus each layer's K/V below min(length, window) a row (int8:
-    dh + 4 bytes a position, head and tensor) plus a recurrent model's
+    whose rows attend to ``step_lengths`` positions (a vlm model's count
+    its prefix): every weight the step reads once (the embedding only as a
+    tied head; a gathered row is nothing; an encdec model's encoder and its
+    layers' ``xattn.wk``/``wv`` not at all, the cross cache having been
+    made at prefill) plus each layer's K/V below min(length, window) a row
+    (int8: dh + 4 bytes a position, head and tensor) plus an encdec model's
+    cross K/V once a layer (``cross_bytes``) plus a recurrent model's
     state, read and written once.  For MoE, ``weights`` counts every expert
     (what the dense (B, E, C, D) dispatch reads) and ``active`` only the
     top-k experts of one token."""
     cfg = model.cfg
-    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    unread = ("enc_", "xattn.wk", "xattn.wv")
+    w_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                  if not (n.startswith(unread[0]) or n.endswith(unread[1:])))
     elem = model.embed.element_size()
     read = w_bytes - (0 if cfg.tie_embeddings else model.embed.numel() * elem)
     per_pos = cfg.dh + 4 if cfg.kv_cache_int8 else cfg.dh * elem
     kv = sum(min(int(n), w) for w in model.windows for n in step_lengths) * \
         cfg.n_kv_heads * per_pos * 2
+    cross = (2 * cfg.n_layers * len(step_lengths) * cfg.frontend_len * cfg.n_kv_heads * cfg.dh
+             * elem if cfg.is_encdec else 0)
     state = 2 * state_bytes(cfg, len(step_lengths))
-    out = {"weights": 1e3 * (read + kv + state) / H100_BYTES_PER_S, "kv_bytes": kv,
-           "read_bytes": read, "state_bytes": state}
+    out = {"weights": 1e3 * (read + kv + cross + state) / H100_BYTES_PER_S, "kv_bytes": kv,
+           "read_bytes": read, "state_bytes": state, "cross_bytes": cross}
     if cfg.is_moe:
         idle = cfg.n_layers * (cfg.n_experts - cfg.top_k_experts) * 3 * cfg.d_model * cfg.d_ff
         out["active"] = 1e3 * (read - idle * elem + kv) / H100_BYTES_PER_S
     return out
+
+
+def check_encdec_bound(rows: int = 8, fill: int = 64) -> dict:
+    """Before the script's first use of the card: ``decode_step_bounds`` of
+    seamless-m4t-large-v2 (a fake bf16 model, nothing allocated) at
+    ``rows`` rows of ``fill`` positions equals a count from the config
+    alone: per decoder layer ln1, ln_x, ln2, attn's wq, wk, wv, wo,
+    xattn's wq and wo, the MLP; final_ln and lm_head; the self K/V and the
+    cross K/V (rows x F positions) of every layer; bf16."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config(SEAMLESS)
+    d, hd, kvd = cfg.d_model, cfg.n_heads * cfg.dh, cfg.n_kv_heads * cfg.dh
+    layer = 3 * d + (d * hd + 2 * d * kvd + hd * d) + (d * hd + hd * d) + 3 * d * cfg.d_ff
+    weights = 2 * (cfg.n_layers * layer + d + d * cfg.vocab_size)
+    self_kv = 2 * cfg.n_layers * rows * fill * kvd * 2
+    cross_kv = 2 * cfg.n_layers * rows * cfg.frontend_len * kvd * 2
+    with FakeTensorMode():
+        b = decode_step_bounds(Model(cfg, device="cpu"), [fill] * rows)
+    got = b["read_bytes"] + b["kv_bytes"] + b["cross_bytes"]
+    hand = weights + self_kv + cross_kv
+    check(got == hand, f"decode_step_bounds of {SEAMLESS} counts {got} bytes, the hand count "
+                       f"{hand}")
+    print(f"[bounds] {SEAMLESS} decode step at {rows} rows x {fill} positions: "
+          f"decode_step_bounds {got / 1e9:.4f} GB = the hand count (decoder weights and head "
+          f"{weights / 1e9:.4f} GB, self K/V {self_kv / 1e9:.4f}, cross K/V read by "
+          f"{cfg.n_layers} layers {cross_kv / 1e9:.4f}; the encoder and xattn.wk/wv unread), "
+          f"{b['weights']:.4f} ms at 3.35 TB/s", flush=True)
+    return b
 
 
 def cache_bytes(cfg, slots: int, max_len: int, elem: int) -> int:
@@ -2789,8 +2922,6 @@ def decode_idle_share(model, reqs, max_len: int, step_ms: float, n: int = 8,
     decode_attention ms a step, CUDA kernels a step)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     plens = np.array([len(r.prompt) for r in reqs], np.int32)
     toks = np.zeros((len(reqs), int(plens.max())), np.int32)
@@ -2798,17 +2929,32 @@ def decode_idle_share(model, reqs, max_len: int, step_ms: float, n: int = 8,
         toks[i, :plens[i]] = r.prompt
     lens = torch.as_tensor(plens, device=model.device)
     logits, cache = model.prefill({"tokens": toks}, max_len, lengths=lens)
-    tok = torch.argmax(logits, -1).to(torch.int32)
+    state = {"tok": torch.argmax(logits, -1).to(torch.int32), "lens": lens}
+
+    def step():
+        logits, _ = model.decode_step(cache, state["tok"], state["lens"])
+        state["lens"], state["tok"] = state["lens"] + 1, torch.argmax(logits, -1).to(torch.int32)
+        return state["tok"].cpu()
+
     for _ in range(2):
-        logits, cache = model.decode_step(cache, tok, lens)
-        lens, tok = lens + 1, torch.argmax(logits, -1).to(torch.int32)
+        step()
+    return profile_steps(step, n, step_ms, tag)
+
+
+def profile_steps(step, n: int, step_ms: float, tag: str) -> tuple:
+    """n calls of ``step`` (one decode step, ending in a copy to the host)
+    under torch.profiler: (idle share against the un-profiled median
+    ``step_ms``, decode_attention ms a step, CUDA kernels a step), printed
+    with the device busy time and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            logits, cache = model.decode_step(cache, tok, lens)
-            lens, tok = lens + 1, torch.argmax(logits, -1).to(torch.int32)
-            tok.cpu()
+            step()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
     ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -2970,6 +3116,279 @@ def fp32_exactness(arch: str = QWEN, n_layers: int = 4, new: int = 16, plens=(64
           f"tokens equal solo tokens; {tf}; peak memory {peak:.2f} GB; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     del model
+    torch.cuda.empty_cache()
+    return {"near_ties": near}
+
+
+# ----------------------------------------------------------------------
+# phases 12, 12b, 12c: the encdec and vlm families, through Model.prefill
+# and Model.decode_step (ServeEngine serves token prompts only)
+# ----------------------------------------------------------------------
+# 12: speech-to-text translation: 16 requests of 1,024 stub frames in two
+# batches of 8, decoder prompts of 4-32 tokens (a language tag and a
+# prefix), 64 new tokens each
+S12_REQUESTS, S12_SLOTS, S12_PLENS, S12_NEW, S12_MAX_LEN = 16, 8, (4, 32), 64, 128
+# 12b: image chat on internvl2-76b at 8 of its 80 layers (its 80 are 141 GB
+# of bf16 weights): 8 requests of 256 stub patches, prompts of 256-2,048
+# tokens, 16 new tokens; the cache holds the prefix: 256 + 2,048 + 16
+I12_LAYERS, I12_REQUESTS, I12_PLENS, I12_NEW, I12_MAX_LEN = 8, 8, (256, 2048), 16, 2320
+
+
+def frontend_inputs(cfg, n: int, plens, seed: int):
+    """n prompts uniform on ``plens`` tokens and their stub frames or
+    patches (n, F, D): N(0, 1) float32 from a numpy seed, as
+    ``TokenPipeline`` makes them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(plens[0], plens[1] + 1, n)
+    prompts = [rng.integers(0, cfg.vocab_size, int(m)).astype(np.int32) for m in lens]
+    front = rng.normal(0, 1, (n, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    return prompts, front
+
+
+def frontend_batch(model, prompts, front, new: int, max_len: int, profile_last: int = 0,
+                   tag: str = "front") -> dict:
+    """One batch served greedily through ``Model.prefill`` and
+    ``Model.decode_step``, as the reference's tests drive these families:
+    prompts left-aligned and padded, prefill at their lengths, then
+    ``new - 1`` decode steps at lengths that count a vlm model's prefix,
+    each step's tokens copied to the host.  The last ``profile_last`` steps
+    run under torch.profiler (``profile_steps``) and are left out of
+    ``step_ms``.  Returns the tokens (rows x new), the prefill's seconds,
+    each timed step's ms and rows' lengths, the profile, the final cache and
+    fill, and whether every logit was finite."""
+    import numpy as np
+    import torch
+
+    cfg = model.cfg
+    dev = model.device
+    n_prefix = cfg.frontend_len if cfg.family == "vlm" else 0
+    plens = np.array([len(p) for p in prompts], np.int32)
+    toks = np.zeros((len(prompts), int(plens.max())), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    batch = {"tokens": torch.as_tensor(toks, device=dev),
+             ("patches" if cfg.family == "vlm" else "frames"): torch.as_tensor(front, device=dev)}
+    lens = torch.as_tensor(plens, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(batch, max_len, lengths=lens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    st = {"tok": torch.argmax(logits, -1).to(torch.int32), "fill": lens + n_prefix,
+          "finite": torch.isfinite(logits).all()}
+    out = [st["tok"].cpu().numpy()]
+
+    def step():
+        logits, _ = model.decode_step(cache, st["tok"], st["fill"])
+        st["finite"] &= torch.isfinite(logits).all()
+        st["fill"], st["tok"] = st["fill"] + 1, torch.argmax(logits, -1).to(torch.int32)
+        out.append(st["tok"].cpu().numpy())
+
+    step_ms, step_lengths = [], []
+    for _ in range(new - 1 - profile_last):
+        step_lengths.append((st["fill"] + 1).tolist())
+        t = time.perf_counter()
+        step()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    prof = None
+    if profile_last:
+        prof = profile_steps(step, profile_last, float(np.median(step_ms)), tag)
+    return {"tokens": np.stack(out, 1), "prefill_s": prefill_s, "step_ms": step_ms,
+            "step_lengths": step_lengths, "profile": prof, "cache": cache, "fill": st["fill"],
+            "batch": batch, "lens": lens, "finite": bool(st["finite"])}
+
+
+def frontend_probe(model, res: dict) -> tuple:
+    """The kernel against its plain version on the model's own cache after
+    serving, at layer 0: its self-attention over each row's fill and (encdec)
+    its cross-attention over all F frames, q from the last token's
+    embedding.  Returns (max abs error, {"self": device ms a call,
+    "cross": ...})."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.models.layers import attn_qkv, rms_norm
+
+    cfg, cache, fill = model.cfg, res["cache"], res["fill"]
+    lp = model.layers[0]
+    x = model._embed(torch.as_tensor(res["tokens"][:, -1:], device=model.device).long())
+    q = attn_qkv(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, fill.long()[:, None])[0]
+    calls = {"self": (q[:, 0].float().contiguous(), cache["k"][0], cache["v"][0],
+                      fill.to(torch.int32))}
+    if cfg.is_encdec:
+        b, f = fill.shape[0], cfg.frontend_len
+        h = rms_norm(x, lp.ln_x, cfg.norm_eps) @ lp.xattn.wq
+        calls["cross"] = (h.reshape(b, cfg.n_kv_heads, -1, cfg.dh).float().contiguous(),
+                          *(cache[n].transpose(1, 2).contiguous() for n in ("xk", "xv")),
+                          torch.full((b,), f, dtype=torch.int32, device=model.device))
+    err, ms = 0.0, {}
+    for name, args in calls.items():
+        out, ref = decode_attention_cuda(*args), decode_attention_ref(*args)
+        e = float((out - ref).abs().max())
+        check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
+              f"{cfg.name}: decode_attention ({name}) on the model's cache: err {e}")
+        err = max(err, e)
+        ms[name] = device_ms(lambda: decode_attention_cuda(*args), 10, expect=1)[0]
+    return err, ms
+
+
+def frontend_serving(arch: str, n_requests: int, slots: int, plens, new: int, max_len: int,
+                     tag: str, n_layers=None, idle_steps: int = 4) -> dict:
+    """Phases 12 and 12b: ``arch`` at full width in bf16 (random weights
+    from a seed; ``n_layers`` cuts the depth), ``n_requests`` in batches
+    of ``slots`` through :func:`frontend_batch`, the last batch's last
+    ``idle_steps`` steps profiled.  Gated: decode_attention launched once
+    a layer a step (twice with cross-attention), every logit finite and
+    every token in the vocabulary, the kernel equal to its plain version
+    on the model's cache (self and cross)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    enc = (f", {cfg.n_enc_layers} encoder layers over {cfg.frontend_len} stub frames"
+           if cfg.is_encdec else f", {cfg.frontend_len} stub patches before each prompt")
+    print(f"[{tag}] {arch}: {cfg.n_layers} decoder layers{enc}, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"bf16; {w_bytes / 1e9:.3f} GB of weights initialised on the card in {init_s:.2f} s",
+          flush=True)
+    prompts, front = frontend_inputs(cfg, n_requests, plens, seed=12)
+    per_step = (2 if cfg.is_encdec else 1) * cfg.n_layers
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    runs = []
+    for i in range(0, n_requests, slots):
+        last = i + slots >= n_requests
+        runs.append(frontend_batch(model, prompts[i:i + slots], front[i:i + slots], new,
+                                   max_len, profile_last=idle_steps if last else 0, tag=tag))
+    serve_s = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    n_steps = sum(new - 1 for _ in runs)
+    check(launches["decode_attention"] == per_step * n_steps,
+          f"{arch}: decode_attention launched {launches['decode_attention']} times over "
+          f"{n_steps} decode steps, not {per_step} a step")
+    check(all(r["finite"] for r in runs), f"{arch}: a logit was not finite")
+    tokens = np.concatenate([r["tokens"] for r in runs])
+    check(tokens.shape == (n_requests, new) and tokens.min() >= 0
+          and tokens.max() < cfg.vocab_size, f"{arch}: tokens out of the vocabulary")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [m for r in runs for m in r["step_ms"]]
+    step_lengths = [ln for r in runs for ln in r["step_lengths"]]
+    med = float(np.median(step_ms))
+    bounds = decode_step_bounds(model, step_lengths[int(np.argsort(step_ms)[len(step_ms) // 2])])
+    err, probe_ms = frontend_probe(model, runs[-1])
+    # prefill, and the encoder alone, by CUDA events on the last batch
+    last = runs[-1]
+    prefill_ev = cuda_ms(lambda: model.prefill(last["batch"], max_len, lengths=last["lens"]), 1)
+    enc_ev = (cuda_ms(lambda: model._encoder(last["batch"]["frames"]), 1) if cfg.is_encdec
+              else None)
+    idle, attn_ms, kernels = last["profile"]
+    n_tok = tokens.size
+    plen_all = [len(p) for p in prompts]
+    print(f"[{tag}] served {n_requests} requests ({n_tok} tokens; prompts {min(plen_all)}-"
+          f"{max(plen_all)}) in batches of {slots} in {serve_s:.2f} s: {n_tok / serve_s:.1f} "
+          f"tokens/s end to end; prefill per batch " + ", ".join(
+              f"{r['prefill_s']:.3f} s" for r in runs) + f"; by CUDA events {prefill_ev:.2f} ms"
+          + (f", the encoder {enc_ev:.2f} ms of it ({enc_ev / prefill_ev:.3f})" if enc_ev
+             else f" over {cfg.frontend_len} prefix + up to {max(plen_all)} prompt positions"),
+          flush=True)
+    cross = (f" + cross K/V {bounds['cross_bytes'] / 1e9:.3f} GB ({cfg.n_layers} reads)"
+             if cfg.is_encdec else "")
+    print(f"[{tag}] decode: {len(step_ms)} timed steps, median {med:.3f} ms/step (p90 "
+          f"{np.percentile(step_ms, 90):.3f}), {slots / med * 1e3:.1f} tokens/s in decode; bound "
+          f"{bounds['weights']:.3f} ms/step (weights read {bounds['read_bytes'] / 1e9:.3f} GB + "
+          f"self K/V {bounds['kv_bytes'] / 1e9:.3f} GB{cross} at 3.35 TB/s), step / bound "
+          f"{med / bounds['weights']:.3f}; peak memory {peak:.2f} GB", flush=True)
+    split = " + ".join(f"{cfg.n_layers} {k} x {v:.4f}" for k, v in probe_ms.items())
+    est = cfg.n_layers * sum(probe_ms.values())
+    print(f"[{tag}] decode_attention launches {launches['decode_attention']} = {per_step} x "
+          f"{n_steps} steps; kernel vs plain on the model's cache (layer 0"
+          f"{', self and cross' if cfg.is_encdec else ''}): max_abs_err {err:.3g}; device ms a "
+          f"step {split} = {est:.4f} (profiler: {attn_ms:.4f})", flush=True)
+    prefill_s = [r["prefill_s"] for r in runs]
+    del model, runs, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(f"[{tag}] phase took {secs:.1f} s", flush=True)
+    return {"launches": launches, "step_ms": med, "bound_ms": bounds["weights"], "bounds": bounds,
+            "idle_share": idle, "kernels_per_step": kernels, "attention_ms_per_step": attn_ms,
+            "attention_ms_split": {k: cfg.n_layers * v for k, v in probe_ms.items()},
+            "cache_err": err, "tokens_per_s": n_tok / serve_s, "peak_gb": peak,
+            "prefill_s": prefill_s, "prefill_event_ms": prefill_ev, "encoder_event_ms": enc_ev,
+            "seconds": secs}
+
+
+def frontend_fp32(arch: str, n_layers: int, plens, tag: str = "frontend-fp32", new: int = 16) -> dict:
+    """Phase 12c: ``arch`` at full width, ``n_layers`` deep (an encdec
+    model's encoder too), fp32: 4 requests (ragged on ``plens``) served in
+    one batch give each the tokens it gets alone, and those equal the
+    argmax of one teacher-forced ``forward`` over prompt + output (its
+    frames or patches included) but where its top-2 gap is below 1e-4 x
+    max|logit|."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    over = {"n_layers": n_layers, "dtype": "float32"}
+    if get_config(arch).is_encdec:
+        over["n_enc_layers"] = n_layers
+    cfg = dataclasses.replace(get_config(arch), **over)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    prompts, front = frontend_inputs(cfg, 4, plens, seed=3)
+    n_prefix = cfg.frontend_len if cfg.family == "vlm" else 0
+    max_len = n_prefix + max(len(p) for p in prompts) + new
+    batch = frontend_batch(model, prompts, front, new, max_len)["tokens"]
+    key = "patches" if cfg.family == "vlm" else "frames"
+    near = 0
+    for i, p in enumerate(prompts):
+        solo = frontend_batch(model, [p], front[i:i + 1], new, max_len)["tokens"][0]
+        check(np.array_equal(solo, batch[i]), f"{arch} fp32: prompt {i} ({len(p)} tokens) "
+                                              f"served alone gives {solo}, in the batch {batch[i]}")
+        seq = np.concatenate([p, batch[i, :-1].astype(np.int32)])[None]
+        h, _ = model._hidden({"tokens": seq, key: front[i:i + 1]})
+        logits = model._logits(h[:, len(p) - 1:])[0]
+        top2 = logits.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        scale = logits.abs().max(-1).values.cpu().numpy()
+        tie = gap < 1e-4 * scale
+        bad = np.flatnonzero((logits.argmax(-1).cpu().numpy() != batch[i]) & ~tie)
+        check(not bad.size,
+              f"{arch} fp32: prompt {i}: served tokens differ from the teacher-forced argmax at "
+              f"{bad.tolist()}, top-2 gaps {gap[bad].tolist()} against 1e-4 x max|logit| "
+              f"{(1e-4 * scale[bad]).tolist()}")
+        near += int(tie.sum())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    depth = (f"{n_layers} encoder + {n_layers} decoder layers" if cfg.is_encdec
+             else f"{n_layers} layers")
+    print(f"[{tag}] {arch} full width, {depth}, fp32: 4 requests ({[len(p) for p in prompts]} "
+          f"tokens, {cfg.frontend_len} stub {key} each) x {new} new: batch tokens equal solo "
+          f"tokens; served tokens equal the teacher-forced argmax ({near} positions with a "
+          f"top-2 gap below 1e-4 x max|logit| exempt); peak memory {peak:.2f} GB; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del model
+    gc.collect()
     torch.cuda.empty_cache()
     return {"near_ties": near}
 
@@ -3465,11 +3884,13 @@ def main(argv=None) -> int:
 
     strict_fp32()
     t_start = time.perf_counter()
+    check_encdec_bound()
     build_kernels()
     kc = kernel_checks(2_140_000, 384)
     dc = decode_checks()
     wc = decode_window_checks()
     i8 = decode_int8_checks()
+    fc = decode_frontend_checks()
     mp = main_path(args.rows, args.train, args.serve, args.batch)
     real_row_independence(mp)
     dnf = dnf_phase(mp)
@@ -3521,6 +3942,15 @@ def main(argv=None) -> int:
     fp32_exactness(QWEN, tag="fp32c", teacher_forced=False, kv_cache_int8=True)
     secs_8c = time.perf_counter() - t_phase
     print(f"[fp32c] phase 8c took {secs_8c:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    served["12"] = frontend_serving(SEAMLESS, S12_REQUESTS, S12_SLOTS, S12_PLENS, S12_NEW,
+                                    S12_MAX_LEN, tag="seamless")
+    served["12b"] = frontend_serving(INTERNVL, I12_REQUESTS, I12_REQUESTS, I12_PLENS, I12_NEW,
+                                     I12_MAX_LEN, tag="internvl2", n_layers=I12_LAYERS)
+    frontend_fp32(SEAMLESS, 4, S12_PLENS)
+    frontend_fp32(INTERNVL, 2, (64, 512))
+    print(f"[frontend] phases 12, 12b and 12c took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     tr = train_phase()
     t_phase = time.perf_counter()
     cli_phase()
@@ -3558,7 +3988,7 @@ def main(argv=None) -> int:
         "launches_by_phase": {k: p["launches"]["decode_attention"] for k, p in served.items()},
         "train_launches": tr["launches"]["decode_attention"],
         "max_abs_err": max(dc["max_abs_err"], wc["max_abs_err"], i8["max_abs_err"],
-                           *(p["cache_err"] for p in served.values())),
+                           fc["max_abs_err"], *(p["cache_err"] for p in served.values())),
         "ms": dhead["ms"], "plain_ms": dhead["plain_ms"], "bound_ms": dhead["bound_ms"],
         "bound_by": dhead["bound_by"], "library_ms": dhead["library_ms"],
         "device_ms": dhead["device_ms"], "plain_device_ms": dhead["plain_device_ms"],
@@ -3589,6 +4019,12 @@ def main(argv=None) -> int:
                                                  "bf16_device_ms")},
                  "hymba_shape": {"B": 8, "KV": 5, "GQ": 5, "S": 2088, "dh": 64, "window": 1024,
                                  "positions": ihym["positions"]}},
+        "cross": {k: fc["rows"]["seamless-cross"][k] for k in (
+            "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by", "max_abs_err", "shape")},
+        "frontend_self": {t: {k: fc["rows"][t][k] for k in ("ms", "device_ms", "plain_ms",
+                                                             "library_ms", "bound_ms", "shape")}
+                          for t in ("seamless-self", "internvl2-self")},
         "check": "ok",
     }]
     print(json.dumps({"kernels": kernels}))

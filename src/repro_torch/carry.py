@@ -217,39 +217,44 @@ def model_params_from_reference(cfg, params: Dict, device=DEFAULT_DEVICE) -> Mod
     ``mlstm.*`` leaves on the every-1 mLSTMs of a group after that: group g
     gets ``blocks.<g>.slstm.*``, ``blocks.<g>.slstm_ln``,
     ``blocks.<g>.mlstm_ln`` (every-1, d) and ``blocks.<g>.mlstm.<j>.*``.
-    Every array is cast to the type the port stores it in: ``cfg.dtype``,
+    An encdec model's ``enc_layers`` subtree is stacked on its encoder
+    layers likewise (``enc_layers.<i>.attn.wq``), beside ``enc_final_ln``
+    and its decoder layers' ``ln_x`` and ``xattn.*``.  Every array is cast to the type the port stores it in: ``cfg.dtype``,
     or fp32 for the recurrences' weights the reference uses uncast.
     """
     return _load(Model(cfg, device=device), params)
 
 
-def _by_name(cfg, params: Dict, n: int) -> Dict[str, np.ndarray]:
+def _stacked(model: Model) -> Dict[str, int]:
+    """The reference's layer-stacked subtrees of ``model``'s config, each
+    with its count of stacked layers (an xLSTM's groups)."""
+    cfg = model.cfg
+    if cfg.family == "ssm":
+        return {"blocks": len(model.blocks)}
+    return {"layers": cfg.n_layers, **({"enc_layers": cfg.n_enc_layers} if cfg.is_encdec else {})}
+
+
+def _by_name(params: Dict, stacked: Dict[str, int]) -> Dict[str, np.ndarray]:
     """The reference's nested, layer-stacked tree by the port's names."""
-    state = {"embed": params["embed"], "final_ln": params["final_ln"]}
-    if not cfg.tie_embeddings:
-        state["lm_head"] = params["lm_head"]
-    stacked = "blocks" if cfg.family == "ssm" else "layers"
-    for path, arr in _flatten(params[stacked]):
-        arr = np.asarray(arr)
-        if arr.shape[0] != n:
-            raise ValueError(f"{stacked}.{path}: leading axis {arr.shape[0]} != {n}")
-        for i in range(n):
-            if path.startswith("mlstm."):
-                for j in range(arr.shape[1]):
-                    state[f"{stacked}.{i}.mlstm.{j}.{path[6:]}"] = arr[i, j]
-            else:
-                state[f"{stacked}.{i}.{path}"] = arr[i]
+    state = {k: v for k, v in params.items() if k not in stacked}
+    for root, n in stacked.items():
+        for path, arr in _flatten(params[root]):
+            arr = np.asarray(arr)
+            if arr.shape[0] != n:
+                raise ValueError(f"{root}.{path}: leading axis {arr.shape[0]} != {n}")
+            for i in range(n):
+                if path.startswith("mlstm."):
+                    for j in range(arr.shape[1]):
+                        state[f"{root}.{i}.mlstm.{j}.{path[6:]}"] = arr[i, j]
+                else:
+                    state[f"{root}.{i}.{path}"] = arr[i]
     return state
-
-
-def _n_stacked(model: Model) -> int:
-    return len(model.blocks) if model.cfg.family == "ssm" else model.cfg.n_layers
 
 
 def _load(model: Model, params: Dict) -> Model:
     """Copy the reference's tree into ``model``'s weights, each cast to the
     type the model stores it in."""
-    state = _by_name(model.cfg, params, _n_stacked(model))
+    state = _by_name(params, _stacked(model))
     own = model.state_dict()
     if set(state) != set(own):
         raise ValueError(f"parameter names differ: reference-only {sorted(set(state) - set(own))}, "
@@ -269,37 +274,38 @@ def params_to_reference(model: Model, tensors: Optional[Dict[str, torch.Tensor]]
     weights (or ``tensors``, a dict by the same names: its grads, or an
     optimizer moment) as the reference's nested tree of numpy arrays, layer
     i stacked at row i of ``layers`` (an xLSTM's group g and mLSTM j at
-    ``blocks`` [g] and [g, j]).  Arrays keep their stored type."""
-    cfg = model.cfg
+    ``blocks`` [g] and [g, j]; an encdec model's encoder layer i at row i
+    of ``enc_layers``).  Arrays keep their stored type."""
     if tensors is None:
         tensors = dict(model.named_parameters())
-    stacked = "blocks" if cfg.family == "ssm" else "layers"
-    rows: Dict[str, Dict[Tuple[int, ...], np.ndarray]] = {}
+    stacked = _stacked(model)
+    rows: Dict[str, Dict[str, Dict[Tuple[int, ...], np.ndarray]]] = {r: {} for r in stacked}
     out: Dict = {}
     for name, t in tensors.items():
         arr = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
         parts = name.split(".")
-        if parts[0] != stacked:
+        if parts[0] not in stacked:
             out[name] = arr
         elif len(parts) > 4 and parts[2] == "mlstm":
-            rows.setdefault(".".join(["mlstm"] + parts[4:]), {})[
+            rows[parts[0]].setdefault(".".join(["mlstm"] + parts[4:]), {})[
                 (int(parts[1]), int(parts[3]))] = arr
         else:
-            rows.setdefault(".".join(parts[2:]), {})[(int(parts[1]),)] = arr
-    tree: Dict = {}
-    for path, by_at in rows.items():
-        ats = sorted(by_at)
-        shape = tuple(max(a[d] for a in ats) + 1 for d in range(len(ats[0])))
-        first = by_at[ats[0]]
-        arr = np.empty(shape + first.shape, first.dtype)
-        for at, a in by_at.items():
-            arr[at] = a
-        node = tree
-        *dirs, leaf = path.split(".")
-        for d in dirs:
-            node = node.setdefault(d, {})
-        node[leaf] = arr
-    out[stacked] = tree
+            rows[parts[0]].setdefault(".".join(parts[2:]), {})[(int(parts[1]),)] = arr
+    for root, by_path in rows.items():
+        tree: Dict = {}
+        for path, by_at in by_path.items():
+            ats = sorted(by_at)
+            shape = tuple(max(a[d] for a in ats) + 1 for d in range(len(ats[0])))
+            first = by_at[ats[0]]
+            arr = np.empty(shape + first.shape, first.dtype)
+            for at, a in by_at.items():
+                arr[at] = a
+            node = tree
+            *dirs, leaf = path.split(".")
+            for d in dirs:
+                node = node.setdefault(d, {})
+            node[leaf] = arr
+        out[root] = tree
     return out
 
 
@@ -328,11 +334,11 @@ def train_state_from_reference(cfg, state_np, device=DEFAULT_DEVICE,
         model = Model(cfg, device=device)
     _load(model.trainable(), state_np.params)
     dev = model.device
-    n = _n_stacked(model)
+    stacked = _stacked(model)
 
     def moments(tree) -> Dict[str, torch.Tensor]:
         return {k: torch.tensor(np.asarray(a, np.float32), device=dev)
-                for k, a in _by_name(cfg, tree, n).items()}
+                for k, a in _by_name(tree, stacked).items()}
 
     opt = AdamWState(step=torch.tensor(int(np.asarray(state_np.opt.step)), dtype=torch.int32,
                                        device=dev),

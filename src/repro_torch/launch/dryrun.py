@@ -31,12 +31,16 @@ imported only here), made for each cell and torn down after it.  Per cell:
   axis is larger than 1 ``temp_bytes`` is an upper bound.  A fake trace
   costs seconds a layer, so a train or prefill cell of an attention model
   deeper than two periods of its layer pattern is traced at depths p and
-  2p and extrapolated (``trace_depths``).  Recurrent families run their
+  2p and extrapolated (``trace_depths``; a vlm model as its dense
+  backbone, an encdec model with both stacks at each depth).  Recurrent families run their
   time loops in Python, one position at a time: their train or prefill
   cells past ``TRACE_MAX_RECURRENT_LEN`` positions are recorded with
   ``traced: false`` and the reason, the traced fields None;
 * ``roofline`` (analytic): ``launch/analytics.py`` through
   ``launch/roofline.py``'s ``analyse`` with the H100's datasheet figures.
+
+A vlm prefill cell's cache holds the prefix too: ``seq_len +
+frontend_len`` positions, as the reference's.
 
 Results go to ``results/dryrun_torch/<arch>__<shape>__<mesh>.json``, and
 the sweep is resumable (existing files are skipped unless
@@ -101,6 +105,12 @@ def _model_flops(cfg, shape) -> float:
         tokens = shape.global_batch * shape.seq_len
         return 2.0 * n * tokens
     return 2.0 * n * shape.global_batch  # decode: one token per sequence
+
+
+def _prefill_len(cfg, shape) -> int:
+    """The cache length of a prefill cell: a vlm model's prefix comes
+    before the prompt."""
+    return shape.seq_len + (cfg.frontend_len if cfg.family == "vlm" else 0)
 
 
 def _untraced_reason(cfg, shape) -> Optional[str]:
@@ -211,7 +221,7 @@ def _trace_at(cfg, shape) -> Dict[str, float]:
             fn = lambda: step(state, specs["batch"])  # noqa: E731
         elif shape.kind == "prefill":
             inputs = specs
-            fn = lambda: model.prefill(specs["batch"], shape.seq_len)  # noqa: E731
+            fn = lambda: model.prefill(specs["batch"], _prefill_len(cfg, shape))  # noqa: E731
         else:
             inputs = specs
             fn = lambda: model.decode_step(specs["cache"], specs["tokens"],  # noqa: E731
@@ -227,22 +237,32 @@ def _trace_at(cfg, shape) -> Dict[str, float]:
 def _trace_depths(cfg, shape) -> Optional[tuple]:
     """(p, 2p) for a train or prefill cell of an attention family deeper
     than 2p layers, p the period of its layer pattern (gemma2's
-    local/global pairs: 2); None to trace every layer."""
+    local/global pairs: 2); None to trace every layer.  An encdec model
+    is traced with both stacks at each depth, so its two stacks must be
+    equally deep to be extrapolated."""
     p = 2 if cfg.layer_pattern == "local_global" else 1
-    if shape.kind == "decode" or cfg.family not in ("dense", "moe") or cfg.n_layers <= 2 * p:
+    if shape.kind == "decode" or cfg.family in ("ssm", "hybrid") or cfg.n_layers <= 2 * p:
+        return None
+    if cfg.is_encdec and cfg.n_enc_layers != cfg.n_layers:
         return None
     return p, 2 * p
+
+
+def _at_depth(cfg, n: int):
+    """``cfg`` with n decoder layers (and n encoder layers if encdec)."""
+    return dataclasses.replace(cfg, n_layers=n, **({"n_enc_layers": n} if cfg.is_encdec else {}))
 
 
 def _traced(cfg, shape) -> Dict[str, Any]:
     """The traced fields of a cell: every layer traced, or (train and
     prefill cells of deep attention models, whose fake trace costs seconds
     a layer) the traces at depths p and 2p extrapolated to the model's
-    depth, every layer of a period costing what the second period did."""
+    depth, every layer of a period (an encdec model's decoder and encoder
+    layer together) costing what the second period did."""
     depths = _trace_depths(cfg, shape)
     if depths is None:
         return {**_trace_at(cfg, shape), "trace_depths": [cfg.n_layers]}
-    lo, hi = (_trace_at(dataclasses.replace(cfg, n_layers=n), shape) for n in depths)
+    lo, hi = (_trace_at(_at_depth(cfg, n), shape) for n in depths)
     periods = (cfg.n_layers - depths[0]) / (depths[1] - depths[0])
     out = {k: lo[k] + periods * (hi[k] - lo[k]) for k in lo}
     return {**out, "trace_depths": list(depths)}
@@ -299,7 +319,7 @@ def cell_record(cfg, shape, multi_pod: bool = False, mesh_shape=None,
                     args_b = state_b + in_bytes
                     out_b = state_b + 6 * 4                 # the state, six 0-d metrics
                 else:
-                    cache = model.init_cache(b, s)
+                    cache = model.init_cache(b, _prefill_len(cfg, shape))
                     args_b = p_bytes + in_bytes
                     out_b = b * cfg.vocab_size * 4 + _local_bytes(
                         mesh, cache, cache_sharding(mesh, cache, b))

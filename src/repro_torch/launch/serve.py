@@ -30,7 +30,9 @@ from ..serve.engine import Request, ServeEngine
 def run_lm(args) -> dict:
     """Serve ``--requests`` random prompts of ``--prompt-len`` tokens with
     ``get_config(arch).reduced()`` (``--reduced`` cannot be turned off, as in
-    the reference) and random weights from ``manual_seed(0)``."""
+    the reference) and random weights from ``manual_seed(0)``.  A model
+    with a frontend (encdec, vlm) raises ``NotImplementedError`` (from
+    ``ServeEngine``): its requests need frames or patches."""
     cfg = get_config(args.arch).reduced()
     model = Model(cfg, device=args.device).init(
         torch.Generator(device=args.device).manual_seed(0))

@@ -102,7 +102,10 @@ def make_sharded_train_step(model: Model, mesh, state: TrainState,
 
     dmesh = data_mesh(mesh)
     place = _placement_fn(model, dmesh.size(), data_axes(mesh))
-    for unit in (model.blocks if model.cfg.family == "ssm" else model.layers):
+    units = list(model.blocks if model.cfg.family == "ssm" else model.layers)
+    if model.cfg.is_encdec:
+        units += list(model.enc_layers)
+    for unit in units:
         fully_shard(unit, mesh=dmesh, shard_placement_fn=place)
     fully_shard(model, mesh=dmesh, shard_placement_fn=place)
     register_fsdp_forward_method(model, "loss")

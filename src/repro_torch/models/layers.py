@@ -96,8 +96,10 @@ def flash_attention(
     v: torch.Tensor,         # (B, Sk, KV, dh)
     window=None,             # None = full; an int w keeps k_pos > q_pos - w
     attn_softcap: float = 0.0,
+    causal: bool = True,     # False: every query sees every key (the window still applies)
 ) -> torch.Tensor:
-    """Causal attention over query chunks of ``CHUNK``; scores per chunk are
+    """Attention over query chunks of ``CHUNK``, causal unless ``causal`` is
+    False (the encoder's and cross-attention's); scores per chunk are
     (B, KV, G, CHUNK, Sk) in fp32, soft-capped before the mask as the
     reference's.  Returns (B, Sq, KV, G, dh) in q's type."""
     sq, sk = q.shape[1], k.shape[1]
@@ -109,7 +111,8 @@ def flash_attention(
         qc = q[:, c0:c0 + CHUNK]
         scores = softcap(torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * scale, attn_softcap)
         q_pos = c0 + torch.arange(qc.shape[1], device=q.device)
-        masked = q_pos[:, None] < k_pos[None, :]
+        masked = (q_pos[:, None] < k_pos[None, :] if causal
+                  else torch.zeros((qc.shape[1], sk), dtype=torch.bool, device=q.device))
         if window is not None:
             masked |= k_pos[None, :] <= q_pos[:, None] - window
         scores.masked_fill_(masked, NEG)

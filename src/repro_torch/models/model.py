@@ -1,18 +1,31 @@
-"""The serving language model, every family but encdec and vlm, as an ``nn.Module``.
+"""The language model of every family, as an ``nn.Module``.
 
 Port of ``repro/models/model.py`` for ``family="dense"``, ``"moe"``,
-``"hybrid"`` and ``"ssm"`` (qwen3-14b; gemma2-2b with its alternating
-sliding windows and softcaps; olmoe-1b-7b and llama4-scout with routed, and
-shared, experts; hymba-1.5b, attention and a Mamba head side by side in
-each layer, sliding windows but for its global layers; xlstm-1.3b, groups
-of one sLSTM and ``slstm_every - 1`` mLSTM blocks), with or without the int8
-KV cache:
+``"hybrid"``, ``"ssm"``, ``"encdec"`` and ``"vlm"`` (qwen3-14b; gemma2-2b
+with its alternating sliding windows and softcaps; olmoe-1b-7b and
+llama4-scout with routed, and shared, experts; hymba-1.5b, attention and a
+Mamba head side by side in each layer, sliding windows but for its global
+layers; xlstm-1.3b, groups of one sLSTM and ``slstm_every - 1`` mLSTM
+blocks; seamless-m4t-large-v2, a bidirectional encoder over stub frame
+embeddings and decoder layers that cross-attend to it; internvl2-76b, stub
+patch embeddings prepended to a dense backbone's prompt), with or without
+the int8 KV cache:
 
     model = Model(cfg, device="cuda").init(torch.Generator("cuda").manual_seed(0))
     logits, aux = model.forward({"tokens": tokens})
     total, metrics = model.trainable().loss({"tokens": tokens, "labels": labels})
     logits, cache = model.prefill({"tokens": tokens}, max_len, lengths=lengths)
     logits, cache = model.decode_step(cache, next_tokens, lengths)
+
+An encdec batch also holds ``"frames"`` (B, F, D) and a vlm batch
+``"patches"`` (B, P, D), F and P the config's ``frontend_len``.  A vlm
+model's cache holds P + S positions, and its ``lengths`` count the
+prefix: prefill takes the prompt lengths and gathers each row's logits at
+``P + lengths - 1``; ``decode_step`` takes the cache fill, P + the prompt
+length + the tokens decoded so far.  An encdec prefill fills the cross
+cache ``xk``/``xv`` (B, F, KV, dh), the keys and values of the encoder's
+output under layer 0's ``xattn.wk``/``wv``, which every decoder layer
+attends to (the reference's backbone simplification).
 
 Parameters keep the reference's names and shapes, one module per layer
 (``layers.<i>.attn.wq`` is row i of the reference's stacked
@@ -43,13 +56,16 @@ Differences from the reference, each giving the same numbers:
   ``mlstm``) likewise; it returns the same tensors, the reference a new
   cache.
 * The layer windows are a Python list (``_windows``), not a scanned array.
+* ``decode_step``'s cross-attention runs the decode kernel
+  (``kernels.ops.decode_attention`` at length F for every row, no window,
+  no softcap), where the reference calls its non-causal
+  ``flash_attention``: the same fp32 scores over the cached K/V.  The
+  cache keeps the reference's (B, F, KV, dh) ``xk``/``xv``; each step
+  makes one (B, KV, F, dh) copy of each, which every layer reads.
 * ``input_specs`` returns ``FakeTensorMode`` tensors on the model's device
   (the dry-run's model is itself fake, on the CPU) in place of
   ``jax.ShapeDtypeStruct``: they hold no memory, and the kernel wrappers
   take their plain branch on them, so a traced step launches nothing.
-
-The encdec and vlm families raise ``NotImplementedError`` at
-construction, never mis-serve.
 """
 from __future__ import annotations
 
@@ -80,20 +96,18 @@ from .layers import (
     softcap,
 )
 
-__all__ = ["Model", "DecoderLayer", "XlstmGroup", "Params", "check_supported",
-           "GLOBAL_WINDOW"]
+__all__ = ["Model", "DecoderLayer", "EncoderLayer", "XlstmGroup", "Params",
+           "check_supported", "GLOBAL_WINDOW"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_LATER = "ROADMAP Queue 1 item 13"
 GLOBAL_WINDOW = 2_000_000_000  # "window" value meaning full attention
 CE_CHUNK = 512                 # positions per cross-entropy chunk, as the reference's
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot serve yet."""
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} not ported to repro_torch yet ({_LATER})")
+    """Raise for a configuration no family of the port takes."""
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm", "encdec", "vlm"):
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     if cfg.family == "ssm" and cfg.n_layers % max(cfg.slstm_every, 1):
         raise ValueError(f"{cfg.name}: the ssm family needs n_layers % slstm_every == 0")
 
@@ -150,7 +164,8 @@ class DecoderLayer(_Unit):
     """One decoder layer's weights: ``ln1``, ``ln2``, ``attn``, ``ffn`` (and
     ``ln1b``/``ln2b`` with post-norms).  An MoE layer's ``ffn`` holds the
     router and the experts' (E, ...) weights, and ``ffn.shared`` with a
-    shared expert; a hybrid layer adds the Mamba head ``mamba``."""
+    shared expert; a hybrid layer adds the Mamba head ``mamba``; an encdec
+    layer the cross-attention's ``ln_x`` and ``xattn``."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -158,6 +173,9 @@ class DecoderLayer(_Unit):
         self.ln1 = _vector(d, device, dtype)
         self.ln2 = _vector(d, device, dtype)
         self.attn = Params(attn_init(cfg), device, dtype)
+        if cfg.is_encdec:
+            self.ln_x = _vector(d, device, dtype)
+            self.xattn = Params(attn_init(cfg), device, dtype)
         if cfg.is_moe:
             self.ffn = Params(moe_init(cfg), device, dtype)
             if cfg.moe_shared_expert:
@@ -166,6 +184,23 @@ class DecoderLayer(_Unit):
             self.ffn = Params(mlp_init(d, cfg.d_ff), device, dtype)
         if cfg.family == "hybrid":
             self.mamba = Params(ssm.mamba_init(cfg), device, dtype, ssm.MAMBA_FP32)
+        if cfg.post_norms:
+            self.ln1b = _vector(d, device, dtype)
+            self.ln2b = _vector(d, device, dtype)
+
+
+class EncoderLayer(_Unit):
+    """One encoder layer's weights: ``ln1``, ``ln2``, ``attn`` and a dense
+    ``ffn`` (the reference inits it as a dense decoder layer, so it also
+    has ``ln1b``/``ln2b`` with post-norms, which its forward never reads)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = _vector(d, device, dtype)
+        self.ln2 = _vector(d, device, dtype)
+        self.attn = Params(attn_init(cfg), device, dtype)
+        self.ffn = Params(mlp_init(d, cfg.d_ff), device, dtype)
         if cfg.post_norms:
             self.ln1b = _vector(d, device, dtype)
             self.ln2b = _vector(d, device, dtype)
@@ -213,6 +248,10 @@ class Model(nn.Module):
         else:
             self.layers = nn.ModuleList(DecoderLayer(cfg, dev, dt) for _ in range(cfg.n_layers))
             self.windows = _windows(cfg, cfg.n_layers)
+        if cfg.is_encdec:
+            self.enc_layers = nn.ModuleList(EncoderLayer(cfg, dev, dt)
+                                            for _ in range(cfg.n_enc_layers))
+            self.enc_final_ln = _vector(cfg.d_model, dev, dt)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -301,6 +340,57 @@ class Model(nn.Module):
             o = rms_norm(o, lp.ln1b, cfg.norm_eps)
         return x + o, k, v
 
+    def _cross_block(self, lp: DecoderLayer, x: torch.Tensor, xk: torch.Tensor,
+                     xv: torch.Tensor, length: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Cross-attention sub-block with residual: ``ln_x``, q = h @
+        ``xattn.wq`` (no RoPE, no qk-norm), every encoder position, no
+        window, no softcap, no post-norm.  Sequence form: xk/xv (B, F, KV,
+        dh) through the non-causal ``flash_attention``.  Decode form (x
+        (B, 1, D), ``length`` (B,) = F): xk/xv (B, KV, F, dh) through the
+        decode kernel."""
+        cfg = self.cfg
+        h = rms_norm(x, lp.ln_x, cfg.norm_eps)
+        b, s, _ = h.shape
+        q = (h @ lp.xattn.wq.to(h.dtype)).reshape(
+            b, s, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.dh)
+        if length is None:
+            o = flash_attention(q, xk, xv, causal=False)
+        else:
+            o = decode_attention(q[:, 0], xk, xv, length).to(x.dtype)[:, None]
+        return x + attn_out(lp.xattn, o, cfg)
+
+    @staticmethod
+    def _cross_kv(lp0: DecoderLayer, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The encoder output (B, F, D) under layer 0's ``xattn.wk`` and
+        ``wv``: the cross-attention keys and values (B, F, KV * dh)."""
+        return enc_out @ lp0.xattn.wk.to(enc_out.dtype), enc_out @ lp0.xattn.wv.to(enc_out.dtype)
+
+    def _encoder(self, frames) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The bidirectional encoder over stub frame embeddings (B, F, D),
+        and the cross K/V (B, F, KV, dh) of its output that every decoder
+        layer attends to (the reference's backbone simplification), made
+        in layer 0's module call so that a sharded layer 0 gathers its
+        weights for it (the call returns no views: FSDP2 hooks its
+        outputs)."""
+        cfg = self.cfg
+        x = torch.as_tensor(frames, device=self.device).to(self.dtype)
+        positions = torch.arange(x.shape[1], device=self.device)[None, :]
+        for lp in self.enc_layers:
+            x = lp(self._remat, self._enc_layer, lp, x, positions)
+        enc_out = rms_norm(x, self.enc_final_ln, cfg.norm_eps)
+        lp0 = self.layers[0]
+        shape = enc_out.shape[:2] + (cfg.n_kv_heads, cfg.dh)
+        return tuple(t.reshape(shape) for t in lp0(self._cross_kv, lp0, enc_out))
+
+    def _enc_layer(self, lp: EncoderLayer, x: torch.Tensor, positions: torch.Tensor
+                   ) -> torch.Tensor:
+        """One encoder layer: non-causal self-attention (no window, no
+        softcap, no post-norms) and the dense MLP, each with residual."""
+        cfg = self.cfg
+        q, k, v = attn_qkv(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, positions)
+        x = x + attn_out(lp.attn, flash_attention(q, k, v, causal=False), cfg)
+        return x + mlp(lp.ffn, rms_norm(x, lp.ln2, cfg.norm_eps))
+
     def _mamba_block(self, lp: DecoderLayer, x: torch.Tensor, state=None):
         """A hybrid layer's Mamba head on the post-attention residual, which
         re-uses the layer's ``ln1``; returns (x + its output, its state)."""
@@ -355,32 +445,52 @@ class Model(nn.Module):
             x = x + y
         return x
 
-    def _decoder_forward(self, x: torch.Tensor, positions: torch.Tensor):
-        """The decoder layers over embeddings x (B, S, D); returns (x, aux),
-        aux the sum of the MoE layers' load-balance losses (0.0 otherwise)."""
+    def _decoder_forward(self, x: torch.Tensor, positions: torch.Tensor, xk=None, xv=None):
+        """The decoder layers over embeddings x (B, S, D), cross-attending
+        to ``xk``/``xv`` when given; returns (x, aux), aux the sum of the
+        MoE layers' load-balance losses (0.0 otherwise)."""
         if self.cfg.family == "ssm":
             return self._xlstm(x), 0.0
         aux = 0.0
         for lp, w in zip(self.layers, self.windows):
-            x, aux = lp(self._remat, self._layer, lp, w, x, aux, positions)
+            x, aux = lp(self._remat, self._layer, lp, w, x, aux, positions, xk, xv)
         return x, aux
 
-    def _layer(self, lp: DecoderLayer, w: int, x: torch.Tensor, aux, positions: torch.Tensor):
+    def _layer(self, lp: DecoderLayer, w: int, x: torch.Tensor, aux, positions: torch.Tensor,
+               xk=None, xv=None):
         """One decoder layer of :meth:`_decoder_forward`: (x, aux) after it."""
         x, _, _ = self._attn_block(lp, x, w, positions)
         if self.cfg.family == "hybrid":
             x, _ = self._mamba_block(lp, x)
+        if xk is not None:
+            x = self._cross_block(lp, x, xk, xv)
         return self._ffn_block(lp, x, aux)
 
     # ==================================================================
     # public: forward / loss
     # ==================================================================
-    def _hidden(self, batch: Dict) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
-        """Final hidden states over the token positions (pre-logits); under
-        autograd when the caller's grad mode is on."""
+    def _prompt(self, batch: Dict) -> Tuple[torch.Tensor, int, Tuple]:
+        """The decoder's input of a batch: (embeddings (B, P + S, D) with a
+        vlm model's patches (B, P, D) in front, P (0 but for vlm), the cross
+        K/V of an encdec model's encoder over ``batch["frames"]``, else
+        ``(None, None)``)."""
         x = self._embed(self._tokens(batch["tokens"]))
+        n_prefix = 0
+        if self.cfg.family == "vlm":
+            patches = torch.as_tensor(batch["patches"], device=self.device).to(x.dtype)
+            x = torch.cat([patches, x], dim=1)
+            n_prefix = patches.shape[1]
+        kv = self._encoder(batch["frames"]) if self.cfg.is_encdec else (None, None)
+        return x, n_prefix, kv
+
+    def _hidden(self, batch: Dict) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
+        """Final hidden states over the token positions (pre-logits; a vlm
+        model's prefix cut off); under autograd when the caller's grad mode
+        is on."""
+        x, n_prefix, kv = self._prompt(batch)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
-        return self._decoder_forward(x, positions)
+        x, aux = self._decoder_forward(x, positions, *kv)
+        return x[:, n_prefix:], aux
 
     @torch.no_grad()
     def forward(self, batch: Dict) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
@@ -435,8 +545,9 @@ class Model(nn.Module):
         ``cfg.dtype``, or int8 with fp32 ``k_scale``/``v_scale`` (L, B, KV,
         S); a hybrid model's Mamba states ``ssm_h`` (L, B, Di, N) and
         ``ssm_conv`` (L, B, K-1, Di); an xLSTM's ``slstm`` (G, B, H, dh) and
-        ``mlstm`` (G, every-1, B, ...) state dicts, each ``m`` at -1e30.
-        Recurrent states are fp32."""
+        ``mlstm`` (G, every-1, B, ...) state dicts, each ``m`` at -1e30; an
+        encdec model's cross K/V ``xk``/``xv`` (B, F, KV, dh) in
+        ``cfg.dtype``, never int8.  Recurrent states are fp32."""
         cfg = self.cfg
         dev = self.device
         f32 = dict(device=dev, dtype=torch.float32)
@@ -460,6 +571,10 @@ class Model(nn.Module):
                               for k, t in ssm.slstm_state(b, cfg, dev).items()}
             cache["mlstm"] = {k: t.expand((g, every - 1) + t.shape).contiguous()
                               for k, t in ssm.mlstm_state(b, cfg, dev).items()}
+        if cfg.is_encdec:
+            shape = (b, cfg.frontend_len, cfg.n_kv_heads, cfg.dh)
+            cache["xk"] = torch.zeros(shape, device=dev, dtype=self.dtype)
+            cache["xv"] = torch.zeros(shape, device=dev, dtype=self.dtype)
         return cache
 
     @property
@@ -475,30 +590,35 @@ class Model(nn.Module):
         return self.cfg.family not in ("ssm", "hybrid")
 
     @staticmethod
-    def _last_hidden(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
-        """Hidden state at each row's LAST REAL position (``lengths - 1``);
-        ``lengths=None`` takes the last column."""
+    def _last_hidden(x: torch.Tensor, lengths: Optional[torch.Tensor],
+                     n_prefix: int = 0) -> torch.Tensor:
+        """Hidden state at each row's LAST REAL position (``n_prefix +
+        lengths - 1``, past a vlm model's prefix); ``lengths=None`` takes
+        the last column."""
         if lengths is None:
             return x[:, -1:, :]
-        pos = torch.clamp_min(lengths.to(x.device).long(), 1) - 1
+        pos = n_prefix + torch.clamp_min(lengths.to(x.device).long(), 1) - 1
         return x[torch.arange(x.shape[0], device=x.device), pos][:, None, :]
 
     @torch.no_grad()
     def prefill(self, batch: Dict, max_len: int, lengths=None) -> Tuple[torch.Tensor, Dict]:
         """Run the prompt through the model, returning (last-token logits
         (B, V) fp32, populated cache).  With ``lengths`` (B,) each row's
-        logits come from its own last position; K/V of a short row's pad
-        tail are written too, beyond the length mask decode applies.  With
-        the int8 cache each layer's K/V are quantised into it, while the
-        layer's own attention runs on the unquantised K/V, as the
-        reference's."""
+        logits come from its own last position (past a vlm model's prefix);
+        K/V of a short row's pad tail are written too, beyond the length
+        mask decode applies.  With the int8 cache each layer's K/V are
+        quantised into it, while the layer's own attention runs on the
+        unquantised K/V, as the reference's.  A vlm model's prefix takes
+        the cache's first P positions; an encdec model's encoder output
+        fills the cross cache."""
         cfg = self.cfg
-        tokens = self._tokens(batch["tokens"])
-        b, s = tokens.shape
+        x, n_prefix, (xk, xv) = self._prompt(batch)
+        b, s = x.shape[:2]
         if s > max_len:
             raise ValueError(f"prompt length {s} exceeds the cache's max_len {max_len}")
         cache = self.init_cache(b, max_len)
-        x = self._embed(tokens)
+        if xk is not None:
+            cache["xk"], cache["xv"] = xk, xv
         if cfg.family == "ssm":
             x = self._xlstm(x, cache)
         else:
@@ -514,17 +634,22 @@ class Model(nn.Module):
                 if cfg.family == "hybrid":
                     x, st = self._mamba_block(lp, x)
                     cache["ssm_h"][i], cache["ssm_conv"][i] = st["h"], st["conv"]
+                if xk is not None:
+                    x = self._cross_block(lp, x, xk, xv)
                 x, _ = self._ffn_block(lp, x)
         if lengths is not None:
             lengths = torch.as_tensor(lengths, device=self.device)
-        return self._logits(self._last_hidden(x, lengths))[:, 0], cache
+        return self._logits(self._last_hidden(x, lengths, n_prefix))[:, 0], cache
 
     @torch.no_grad()
     def decode_step(self, cache: Dict, tokens, lengths) -> Tuple[torch.Tensor, Dict]:
         """One decode step.  tokens: (B,); lengths: (B,) current cache fill
         (the new token's k/v are written at ``lengths``, so every
-        ``lengths[b]`` must be < the cache's max_len).  Returns (logits (B,V)
-        fp32, the cache, updated in place)."""
+        ``lengths[b]`` must be < the cache's max_len; a vlm model's count
+        its prefix).  An encdec model's layers then cross-attend to the
+        whole cross cache through the decode kernel, over one (B, KV, F, dh)
+        copy of ``xk`` and of ``xv`` that every layer reads.  Returns
+        (logits (B,V) fp32, the cache, updated in place)."""
         cfg = self.cfg
         tokens = self._tokens(tokens)
         lengths = torch.as_tensor(lengths, device=self.device).long()
@@ -536,6 +661,9 @@ class Model(nn.Module):
         rows = torch.arange(b, device=self.device)
         positions = lengths[:, None]
         int8 = cfg.kv_cache_int8
+        if cfg.is_encdec:
+            xk, xv = (cache[n].transpose(1, 2).contiguous() for n in ("xk", "xv"))
+            x_len = torch.full((b,), cfg.frontend_len, device=self.device, dtype=torch.int32)
         for i, (lp, w) in enumerate(zip(self.layers, self.windows)):
             h = rms_norm(x, lp.ln1, cfg.norm_eps)
             q, k, v = attn_qkv(lp.attn, h, cfg, positions)
@@ -563,6 +691,8 @@ class Model(nn.Module):
                 st = {"h": cache["ssm_h"][i], "conv": cache["ssm_conv"][i]}
                 x, st = self._mamba_block(lp, x, st)
                 cache["ssm_h"][i], cache["ssm_conv"][i] = st["h"], st["conv"]
+            if cfg.is_encdec:
+                x = self._cross_block(lp, x, xk, xv, x_len)
             x, _ = self._ffn_block(lp, x)
         return self._logits(x)[:, 0], cache
 
@@ -572,22 +702,29 @@ class Model(nn.Module):
     def input_specs(self, shape: ShapeSpec, mode=None) -> Dict:
         """Stand-ins for every input of the step function of this shape
         cell, as the reference's: train -> {"batch": tokens, labels};
-        prefill -> {"batch": tokens}; decode -> {"cache", "tokens",
-        "lengths"} (one token against a cache of ``seq_len`` positions, from
-        ``init_cache``).  Tokens and lengths are int32.  The tensors are
-        fake (``FakeTensorMode``; ``mode``, else the mode of the model's
-        own fake weights, else a new one) on the model's device."""
+        prefill -> {"batch": tokens}; a vlm batch adds ``patches`` and an
+        encdec batch ``frames`` (B, frontend_len, D) in ``cfg.dtype``;
+        decode -> {"cache", "tokens", "lengths"} (one token against a cache
+        of ``seq_len`` positions, from ``init_cache``).  Tokens and lengths
+        are int32.  The tensors are fake (``FakeTensorMode``; ``mode``, else
+        the mode of the model's own fake weights, else a new one) on the
+        model's device."""
         from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 
         if mode is None:
             mode = self.embed.fake_mode if isinstance(self.embed, FakeTensor) else FakeTensorMode()
+        cfg = self.cfg
         b, s = shape.global_batch, shape.seq_len
         i32 = dict(dtype=torch.int32, device=self.device)
+        front = {"vlm": "patches", "encdec": "frames"}.get(cfg.family)
         with mode:
-            if shape.kind == "train":
-                return {"batch": {"tokens": torch.empty((b, s), **i32),
-                                  "labels": torch.empty((b, s), **i32)}}
-            if shape.kind == "prefill":
-                return {"batch": {"tokens": torch.empty((b, s), **i32)}}
+            if shape.kind in ("train", "prefill"):
+                batch = {"tokens": torch.empty((b, s), **i32)}
+                if shape.kind == "train":
+                    batch["labels"] = torch.empty((b, s), **i32)
+                if front:
+                    batch[front] = torch.empty((b, cfg.frontend_len, cfg.d_model),
+                                               dtype=self.dtype, device=self.device)
+                return {"batch": batch}
             return {"cache": self.init_cache(b, s), "tokens": torch.empty((b,), **i32),
                     "lengths": torch.empty((b,), **i32)}

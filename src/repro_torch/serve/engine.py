@@ -45,10 +45,19 @@ class Request:
 
 class ServeEngine:
     """Serves requests through ``model.prefill`` and ``model.decode_step``
-    on the model's device; the weights live in the model."""
+    on the model's device; the weights live in the model.  Requests are
+    token prompts: a model with a frontend (encdec frames, vlm patches)
+    raises ``NotImplementedError``, where the reference's engine fails
+    later, at prefill, for want of its frames or of the prefix offset."""
 
     def __init__(self, model, batch_slots: int = 8, max_len: int = 512,
                  eos_id: Optional[int] = None):
+        cfg = getattr(model, "cfg", None)
+        if cfg is not None and cfg.frontend != "none":
+            raise NotImplementedError(
+                f"ServeEngine serves token prompts only; {cfg.name} has a {cfg.frontend!r} "
+                "frontend and takes frames or patches: serve it through Model.prefill and "
+                "Model.decode_step, as the reference's own tests do")
         self.model = model
         self.device = model.device
         self.slots = batch_slots

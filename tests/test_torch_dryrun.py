@@ -8,7 +8,12 @@
   reference's 7-12 x N·D band (``tests/test_roofline.py``), decode GEMM
   FLOPs within 2 % of the analytic projection and head (MoE: every expert
   over its slots, the port's dense dispatch);
-* a refused family raises and leaves no process group behind;
+* reduced seamless-m4t (encdec) and internvl2 (vlm) prefill and decode
+  cells on a 1 x 1 mesh record ``status: ok`` with the reference's
+  argument bytes (the vlm prefill's cache holds the prefix), an unknown
+  family raises and leaves no process group behind, and the extrapolation
+  from depths 1 and 2 (an encdec model's two stacks together) gives the
+  FLOPs of a full trace at depth 4 within 1 %;
 * the CLI for qwen3-32b decode_32k on the 16 x 16 mesh writes a record
   with every key of the reference's, and the report CLI renders it.
 """
@@ -140,15 +145,38 @@ def test_dryrun_decode_gemm_flops(dry_records, arch):
     assert abs(rec["cost_flops"] - attn - want) <= 0.02 * want
 
 
-def test_dryrun_refused_family_is_an_error(tmp_path):
-    rec = dryrun.run_cell("gemma2-2b", "decode_32k", False, str(tmp_path), mesh_shape=(1, 1))
-    assert rec["status"] == "ok"
-    bad = dataclasses.replace(get_config("qwen3-14b").reduced(), family="encdec", n_enc_layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dryrun.cell_record(bad, DRY_SHAPES[2], mesh_shape=(1, 1))
+FRONTEND_ARCHS = ["seamless-m4t-large-v2", "internvl2-76b"]
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_dryrun_frontend_family_cells_are_ok(tmp_path, arch):
     import torch.distributed as dist
 
+    rec = dryrun.run_cell("gemma2-2b", "decode_32k", False, str(tmp_path), mesh_shape=(1, 1))
+    assert rec["status"] == "ok"
+    ref_cfg, cfg = ref_get_config(arch).reduced(), get_config(arch).reduced()
+    for shape in DRY_SHAPES[1:]:
+        rec = dryrun.cell_record(cfg, shape, mesh_shape=(1, 1), arch=arch)
+        assert rec["status"] == "ok" and rec["traced"] and rec["cost_flops"] > 0, shape
+        assert rec["memory_analysis"]["argument_bytes"] == _expected_argument_bytes(
+            ref_cfg, cfg, shape, (1, 1)), shape
+    bad = dataclasses.replace(cfg, family="audio")
+    with pytest.raises(ValueError, match="unknown family"):
+        dryrun.cell_record(bad, DRY_SHAPES[2], mesh_shape=(1, 1))
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_trace_depths_extrapolate_frontend_families(arch):
+    """At depth 4 (an encdec model's encoder too) the traces at depths 1
+    and 2, extrapolated, give a full trace's FLOPs within 1 %."""
+    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(cfg, n_layers=4, **({"n_enc_layers": 4} if cfg.is_encdec else {}))
+    shape = DRY_SHAPES[1]
+    assert dryrun._trace_depths(cfg, shape) == (1, 2)
+    ext, full = dryrun._traced(cfg, shape), dryrun._trace_at(cfg, shape)
+    assert ext["trace_depths"] == [1, 2]
+    assert abs(ext["flops"] - full["flops"]) <= 0.01 * full["flops"]
 
 
 def test_dryrun_and_report_cli(tmp_path):

@@ -148,7 +148,8 @@ def _spec_tree(tree):
 
 
 @pytest.mark.parametrize("arch,kv_int8", [
-    (a, False) for a in ("qwen3-14b", "gemma2-2b", "olmoe-1b-7b", "hymba-1.5b", "xlstm-1.3b")]
+    (a, False) for a in ("qwen3-14b", "gemma2-2b", "olmoe-1b-7b", "hymba-1.5b", "xlstm-1.3b",
+                         "seamless-m4t-large-v2", "internvl2-76b")]
     + [("qwen3-14b", True), ("hymba-1.5b", True)])
 def test_input_specs_equal_reference(arch, kv_int8):
     ref_cfg, cfg = _cfgs(arch, kv_cache_int8=kv_int8)

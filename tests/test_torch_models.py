@@ -8,11 +8,10 @@ within each row's length, and four successive ``decode_step`` logits (the
 port's decode attention runs its kernel's plain version here).  Tolerance
 rtol = atol = 1e-4: fp32 throughout, only the order of sums differs.
 
-Configurations the port does not serve (the encdec and vlm families)
-raise ``NotImplementedError``; the families and features served since
-(softcap, windows, MoE, the hybrid and ssm families, the hymba layer
-pattern, the int8 KV cache) are held to the reference where they used to
-be refused.
+Every family of the registry but dense (MoE, hybrid, ssm, encdec, vlm)
+and the features served since the first slice (softcap, windows, MoE, the
+hymba layer pattern, the int8 KV cache) are held to the reference's
+``forward`` where they used to be refused.
 """
 import dataclasses
 
@@ -26,7 +25,7 @@ from repro.configs import REGISTRY as REF_REGISTRY
 from repro.configs import get_config as ref_get_config
 from repro.models import Model as RefModel
 from repro_torch import carry
-from repro_torch.configs import ModelConfig, get_config
+from repro_torch.configs import get_config
 from repro_torch.models import Model
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -144,10 +143,6 @@ def test_init_draws_reference_scales():
         assert abs(float(sd[name].float().std()) / scale - 1.0) < 0.1, name
 
 
-def _port_cfg(ref_cfg) -> ModelConfig:
-    return ModelConfig(**dataclasses.asdict(ref_cfg))
-
-
 def _forward_parity(ref_cfg, cfg, seq: int = 12):
     """forward logits (and aux) of both packages with the reference's
     weights carried, fp32; with the int8 KV cache also the prefill's
@@ -157,9 +152,13 @@ def _forward_parity(ref_cfg, cfg, seq: int = 12):
     ref = RefModel(ref_cfg)
     params = ref.init(jax.random.PRNGKey(0))
     port = carry.model_params_from_reference(cfg, jax.tree.map(np.asarray, params), device="cpu")
-    toks = _tokens(cfg, 4, (2, seq))
-    r, r_aux = ref.forward(params, {"tokens": jnp.asarray(toks)})
-    p, p_aux = port.forward({"tokens": torch.as_tensor(toks)})
+    batch = {"tokens": _tokens(cfg, 4, (2, seq))}
+    if cfg.frontend != "none":      # stub frames (encdec) or patches (vlm)
+        batch["patches" if cfg.family == "vlm" else "frames"] = np.random.default_rng(5).normal(
+            0, 1, (2, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    toks = batch["tokens"]
+    r, r_aux = ref.forward(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    p, p_aux = port.forward(batch)
     np.testing.assert_allclose(p.numpy(), np.asarray(r), **TOL)
     np.testing.assert_allclose(float(p_aux), float(r_aux), **TOL)
     if cfg.kv_cache_int8:
@@ -171,16 +170,10 @@ def _forward_parity(ref_cfg, cfg, seq: int = 12):
 
 @pytest.mark.parametrize("name", sorted(n for n, c in REF_REGISTRY.items()
                                         if c.family != "dense" or c.is_moe))
-def test_other_families_are_refused(name):
-    """Families the port does not serve (encdec, vlm) raise; the MoE,
-    hybrid and ssm families, served since their ports, are held to the
-    reference."""
-    ref_cfg = REF_REGISTRY[name].reduced()
-    if ref_cfg.family in ("moe", "hybrid", "ssm"):
-        _forward_parity(ref_cfg, get_config(name).reduced())
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(_port_cfg(ref_cfg), device="cpu")
+def test_other_families_equal_reference(name):
+    """The MoE, hybrid, ssm, encdec and vlm families, each served since
+    its port, are held to the reference's forward."""
+    _forward_parity(REF_REGISTRY[name].reduced(), get_config(name).reduced())
 
 
 @pytest.mark.parametrize("change", [

@@ -33,7 +33,7 @@ from repro_torch.launch.mesh import make_custom_mesh, make_production_mesh
 from repro_torch.models import Model
 
 FAMILIES = ["qwen3-14b", "gemma2-2b", "olmoe-1b-7b", "llama4-scout-17b-a16e", "hymba-1.5b",
-            "xlstm-1.3b"]
+            "xlstm-1.3b", "seamless-m4t-large-v2", "internvl2-76b"]
 
 
 # ----------------------------------------------------------------------

@@ -8,7 +8,9 @@ Held to ``repro.train`` / ``repro.models.Model.loss``:
 * ``Model.loss`` (``ce``, ``aux``) within 1e-5 relative and the gradients
   of every parameter within 1e-4 of the leaf's largest reference value,
   for qwen3 (dense), gemma2 (windows, softcaps, tied embeddings), olmoe
-  (MoE), hymba (attention beside Mamba) and xlstm (sLSTM, mLSTM), each
+  (MoE), hymba (attention beside Mamba), xlstm (sLSTM, mLSTM),
+  seamless-m4t (encdec: the encoder over stub frames, cross-attention)
+  and internvl2 (vlm: stub patches before the prompt), each
   ``reduced()`` in fp32, the reference's weights carried in with
   ``carry``; some labels are -1, and qwen3 also runs S=600, whose second
   512-position cross-entropy chunk is padded;
@@ -47,7 +49,8 @@ from repro_torch.serve import Request, ServeEngine
 from repro_torch.train import (AdamWConfig, adamw_init, adamw_update, init_train_state,
                                make_train_step, schedule)
 
-ARCHS = ("qwen3-14b", "gemma2-2b", "olmoe-1b-7b", "hymba-1.5b", "xlstm-1.3b")
+ARCHS = ("qwen3-14b", "gemma2-2b", "olmoe-1b-7b", "hymba-1.5b", "xlstm-1.3b",
+         "seamless-m4t-large-v2", "internvl2-76b")
 LAYERS = {"xlstm-1.3b": 4}      # two groups of one sLSTM and one mLSTM
 SEQ = {"gemma2-2b": 80}         # past its 64-token window
 LOSS_RTOL = 1e-5
@@ -69,7 +72,11 @@ def _batch(cfg, seed, b=2, s=48):
     labels = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
     labels[:, ::7] = -1           # ignored positions
     labels[0, -5:] = -1
-    return {"tokens": tokens, "labels": labels}
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.frontend != "none":    # stub frames (encdec) or patches (vlm)
+        batch["patches" if cfg.family == "vlm" else "frames"] = rng.normal(
+            0, 1, (b, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _leaves(tree, prefix=""):
@@ -112,7 +119,10 @@ def _family(arch):
                                                  device="cpu").trainable()
         total, m = port.loss(batch)
         names = [n for n, _ in port.named_parameters()]
-        grads = torch.autograd.grad(total, [p for _, p in port.named_parameters()])
+        # an encdec model's xattn.wk/wv past layer 0 take no part (their
+        # reference grads are zeros)
+        grads = torch.autograd.grad(total, [p for _, p in port.named_parameters()],
+                                    materialize_grads=True)
         _FAMILY[arch] = dict(ref_cfg=ref_cfg, cfg=cfg, ref=ref, params=params, batch=batch,
                              ref_total=float(ref_total), ref_g=ref_g,
                              ref_metrics=jax.tree.map(np.asarray, ref_m),
