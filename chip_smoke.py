@@ -218,6 +218,24 @@ Phases, each printed as it runs:
      the card's memory, the decode step against the analytic memory term and
      decode_step_bounds, and phase 10's train step against analytic_cost
      (printed, not gated);
+  13. tensor-parallel training (after phase 11, with every earlier model
+     freed): gemma2-2b at full width and 13 of its 26 layers in fp32 (TF32 off),
+     TokenPipeline(vocab 256,000, seq 512, batch 2, seed 0), 3 AdamW steps
+     at lr 3e-4, first in one process (make_train_step), then in two
+     spawned processes both on cuda:0 over make_custom_mesh(1, 2, "cuda")
+     on a gloo group (NCCL refuses two ranks on one device; FSDP2's
+     1-rank data axis runs on gloo too), which start while the one-process
+     run trains; gated: each rank's losses and grad norms within 1e-4
+     relative of the one-process run's, 4,096 seeded elements of every
+     leaf within 2 x lr a step (params) or 1e-4 of the leaf's largest
+     value (m, v), all but 1e-4 of the sampled params within 1e-5 (a gate
+     that the initial params, a rank with no update, must fail), each
+     leaf's fp64 sum within its count times 1e-5 (params) or the moments'
+     band, each rank's allocated state within 1 % of the dry-run's state
+     bytes on a (1, 2) mesh, no
+     kernel launched; printed: the step ms of both runs (the two-process
+     step is gloo through the host, not tensor parallelism over NVLink),
+     each rank's peak, the phase's seconds;
   5. one JSON line listing every kernel, then the card line, then the
      result line {"ok": true, "device": {...}}.
 
@@ -228,7 +246,8 @@ whole, ground truth and rebuilds included, and their serving runs alone:
 in 4e the runtime's own batch_query calls, never the checks of them);
 masked_l2_topk's launches in the kernels line are the sum over phases 4,
 4b, 4c, 4d and 4e (serving runs), decode_attention's over phases 6,
-6b-6f (int8 calls included), 11, 12 and 12b.  Any failed check raises, so the script
+6b-6f (int8 calls included), 11, 12 and 12b; training (10 and 13's ranks) launches
+neither.  Any failed check raises, so the script
 exits non-zero and prints no result.  It needs a CUDA card and the repo's
 ``src/`` beside it, and imports nothing of the JAX package.
 """
@@ -3860,6 +3879,341 @@ def qwen32_phase(tr: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 13: tensor-parallel training, two processes sharing the card
+# ----------------------------------------------------------------------
+TP_STEPS, TP_BATCH, TP_SEQ = 3, 2, 512
+TP_LAYERS = 13            # of gemma2-2b's 26: cut to half for the script's time, which
+                          # passed 1,080 s on a slow host with all 26
+TP_LR = 3e-4
+TP_SAMPLES = 4096         # elements of each leaf held one by one
+TP_TIMEOUT = 240          # seconds for a rank's reply
+TP_P_CLOSE = 1e-5         # a param element this close (and 1e-5 of it) to the one-process run's
+TP_P_FAR_SHARE = 1e-4     # ... on all but this share of the sampled param elements
+
+
+def tp_band(part: str, leaf: dict) -> float:
+    """Phase 13's band for each element of ``part`` (p, m or v) of a leaf
+    against the one-process run: params 2 x lr a step (a first Adam step
+    moves a weight by lr x g / (|g| + eps), which rounding changes where g
+    is near eps), moments 1e-4 of the leaf's largest |value|."""
+    return 2 * TP_LR * TP_STEPS if part == "p" else 1e-4 * leaf[part]["max"]
+
+
+def tp_far(got, want):
+    """The param elements of ``got`` past TP_P_CLOSE of ``want``'s."""
+    return abs(got - want) > TP_P_CLOSE + TP_P_CLOSE * abs(want)
+
+
+def tp_config():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(GEMMA), dtype="float32", n_layers=TP_LAYERS)
+
+
+def tp_pipe(cfg):
+    from repro_torch.data import TokenPipeline
+
+    return TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TP_SEQ, global_batch=TP_BATCH,
+                         seed=0)
+
+
+def tp_reference(cfg) -> dict:
+    """Phase 13's one-process run on the card: ``make_train_step`` over
+    the whole batch, TP_STEPS steps.  Kept on the host: its losses and
+    grad norms, and for every leaf of params, m and v its fp64 sum, its
+    largest |value| and TP_SAMPLES elements at seeded flat indices (the
+    same indices for a leaf's p, m and v), and the initial params at those
+    indices (what a rank that applied no update would hold)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step, schedule
+
+    pipe = tp_pipe(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device="cuda")
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(model, AdamWConfig(lr=TP_LR), schedule.constant)
+    rng = np.random.default_rng(0)
+    leaves = {}
+    with torch.no_grad():
+        for k, p in state.params.items():
+            idx = np.sort(rng.integers(0, p.numel(), min(p.numel(), TP_SAMPLES)))
+            leaves[k] = {"shape": tuple(p.shape), "idx": idx,
+                         "p0": p.reshape(-1)[torch.as_tensor(idx, device=p.device)]
+                         .double().cpu().numpy()}
+    losses, gnorms, walls = [], [], []
+    for i in range(TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, pipe.batch_at(i))
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        for k, p in state.params.items():
+            leaf = leaves[k]
+            at = torch.as_tensor(leaf["idx"], device=p.device)
+            for part, t in (("p", p), ("m", state.opt.m[k]), ("v", state.opt.v[k])):
+                leaf[part] = {"sum": float(t.double().sum()), "max": float(t.abs().max()),
+                              "at": t.reshape(-1)[at].double().cpu().numpy()}
+    out = {"losses": losses, "grad_norms": gnorms, "walls": walls, "leaves": leaves,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_hold(rank: int, state, axis, ref: dict) -> dict:
+    """A rank's blocks against the one-process run's samples: for each
+    part the largest gap over its ``tp_band``, the elements compared, the
+    param elements past TP_P_CLOSE (``far``), and the fp64 sums of its
+    blocks."""
+    import numpy as np
+    import torch
+
+    worst = {part: (0.0, "") for part in "pmv"}
+    sums = {part: {} for part in "pmv"}
+    n = far = 0
+    with torch.no_grad():
+        for k, leaf in ref["leaves"].items():
+            coords = list(np.unravel_index(leaf["idx"], leaf["shape"]))
+            keep = np.ones(len(leaf["idx"]), bool)
+            dim = axis.dims.get(k)
+            if dim is not None:
+                size = leaf["shape"][dim] // axis.n
+                keep = (coords[dim] >= rank * size) & (coords[dim] < (rank + 1) * size)
+                coords[dim] = coords[dim] - rank * size
+            n += int(keep.sum())
+            at = tuple(torch.as_tensor(c[keep]) for c in coords)
+            for part, tree in (("p", state.params), ("m", state.opt.m), ("v", state.opt.v)):
+                t = tree[k]
+                t = t.to_local() if hasattr(t, "to_local") else t
+                sums[part][k] = float(t.double().sum())
+                got = t[tuple(c.to(t.device) for c in at)].double().cpu().numpy()
+                gap = float(np.abs(got - leaf[part]["at"][keep]).max()) if keep.any() else 0.0
+                ratio = gap / max(tp_band(part, leaf), 1e-30)
+                if ratio > worst[part][0]:
+                    worst[part] = (ratio, k)
+                if part == "p":
+                    far += int(tp_far(got, leaf["p"]["at"][keep]).sum())
+    return {"worst": worst, "sums": sums, "compared": n, "far": far}
+
+
+def tp_worker(rank: int, port: int, inbox, outbox) -> None:
+    """One of phase 13's two ranks, on cuda:0: a gloo group over
+    tcp://localhost, ``make_custom_mesh(1, 2, "cuda")``; it waits for the
+    one-process run's samples (``inbox``), then builds its state (one rank
+    at a time, so that only one whole state exists on the card at once),
+    trains TP_STEPS steps and holds its blocks to the samples; its results
+    (or its traceback) go to ``outbox``."""
+    import datetime
+    import traceback
+
+    t_start = time.time()
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.device import strict_fp32
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import make_custom_mesh
+        from repro_torch.launch.train import make_sharded_train_step
+        from repro_torch.models import Model
+        from repro_torch.train import AdamWConfig, init_train_state, schedule
+
+        strict_fp32()
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=2, timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+        mesh = make_custom_mesh(1, 2, "cuda")
+        # paid while the one-process run trains: the CUDA context, and FSDP2's
+        # and DTensor's first imports (they register their ops: seconds)
+        from torch.distributed.fsdp import fully_shard  # noqa: F401
+        from torch.distributed.tensor import distribute_tensor  # noqa: F401
+
+        torch.zeros(1, device="cuda")
+        t_ready = time.time()
+        ref = inbox.get(timeout=TP_TIMEOUT)
+        t_go = time.time()
+        cfg = tp_config()
+        pipe = tp_pipe(cfg)
+        for turn in range(2):
+            if turn == rank:
+                model = Model(cfg, device="cuda")
+                state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0))
+                step, state = make_sharded_train_step(model, mesh, state,
+                                                      AdamWConfig(lr=TP_LR), schedule.constant)
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        allocated = torch.cuda.memory_allocated()
+        t_built = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_kernel_launches()
+        losses, gnorms, walls = [], [], []
+        for i in range(TP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, pipe.batch_at(i))
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = ops.kernel_launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t_trained = time.time()
+        held = _tp_hold(rank, state, model.model_axis, ref)
+        outbox.put((rank, {
+            "losses": losses, "grad_norms": gnorms, "walls": walls, "allocated": allocated,
+            "peak_gb": peak, "launches": launches, "sharded": sorted(model.model_axis.dims),
+            "split": model.model_axis.split, **held,
+            "times": {"start": t_start, "ready": t_ready, "go": t_go, "built": t_built,
+                      "trained": t_trained, "held": time.time()}}))
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:
+        outbox.put((rank, traceback.format_exc()))
+
+
+def tp_phase() -> dict:
+    """Phase 13: gemma2-2b at full width and TP_LAYERS layers trained by
+    two processes sharing cuda:0 over a (1, 2) mesh, the model axis on a
+    gloo group (FSDP2's 1-rank data axis on gloo too), held to the
+    one-process step on the card.  Gates: every rank's losses and grad
+    norms within 1e-4 relative of the one-process run's; on TP_SAMPLES
+    elements of every leaf, each within its ``tp_band`` and all but
+    TP_P_FAR_SHARE of the params within TP_P_CLOSE; each leaf's fp64 sum
+    within its elements' count times TP_P_CLOSE (params) or the band (m,
+    v); the params gate fails the one-process run's initial params (a
+    rank that applied no update); each rank's allocated state
+    bytes (params, m, v, step) within ARG_GATE of
+    ``dryrun.train_state_bytes`` on a (1, 2) mesh; no launch of either
+    kernel.  A failed rank or collective fails the phase."""
+    import multiprocessing as mp
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "[tp] a process group exists before phase 13")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = tp_config()
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        port = so.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    inboxes, outbox = [ctx.Queue(), ctx.Queue()], ctx.Queue()
+    procs = [ctx.Process(target=tp_worker, args=(r, port, inboxes[r], outbox), daemon=True)
+             for r in range(2)]
+    t_spawn = time.time()
+    for p in procs:
+        p.start()
+    try:
+        # while the ranks start: the dry-run's prediction, then the one-process run
+        predicted = dryrun.train_state_bytes(cfg, (1, 2))
+        ref = tp_reference(cfg)
+        t_ref = time.time()
+        for box in inboxes:
+            box.put(ref)
+        got = {}
+        while len(got) < 2:
+            rank, res = outbox.get(timeout=TP_TIMEOUT)
+            check(not isinstance(res, str), f"[tp] rank {rank} failed:\n{res}")
+            got[rank] = res
+        for p in procs:
+            p.join(timeout=60)
+            check(p.exitcode == 0, f"[tp] a rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    for r, res in sorted(got.items()):
+        for what in ("losses", "grad_norms"):
+            rel = max(_rel(a, b) for a, b in zip(res[what], ref[what]))
+            check(rel <= 1e-4, f"[tp] rank {r}'s {what} {res[what]} against the one-process "
+                                f"{ref[what]}: {rel:.2e} relative")
+        for part, (ratio, k) in res["worst"].items():
+            check(ratio <= 1.0, f"[tp] rank {r}: {part}.{k} off the one-process run by "
+                                f"{ratio:.3f} of its band")
+        gap = abs(res["allocated"] - predicted) / predicted
+        check(gap <= ARG_GATE, f"[tp] rank {r} allocated {res['allocated']} state bytes against "
+                               f"the dry-run's {predicted} ({gap:.2e} apart)")
+        check(res["launches"]["masked_l2_topk"] == 0 and res["launches"]["decode_attention"] == 0,
+              f"[tp] rank {r}'s training launched a kernel: {res['launches']}")
+    compared = got[0]["compared"] + got[1]["compared"]
+    far_share = (got[0]["far"] + got[1]["far"]) / compared
+    check(far_share <= TP_P_FAR_SHARE,
+          f"[tp] {got[0]['far']} + {got[1]['far']} of {compared} sampled param elements "
+          f"past {TP_P_CLOSE} of the one-process run's ({far_share:.2e}, gate {TP_P_FAR_SHARE})")
+    # the same gate on a rank that applied no update: the initial params
+    leaves = ref["leaves"].values()
+    idle_far_share = (sum(int(tp_far(leaf["p0"], leaf["p"]["at"]).sum()) for leaf in leaves)
+                      / sum(len(leaf["idx"]) for leaf in leaves))
+    idle_ratio = max(float(np.abs(leaf["p0"] - leaf["p"]["at"]).max()) / tp_band("p", leaf)
+                     for leaf in leaves)
+    check(idle_far_share > TP_P_FAR_SHARE,
+          f"[tp] the params gate passes the initial params ({idle_far_share:.2e} past "
+          f"{TP_P_CLOSE}): it cannot see a rank that applied no update")
+    sharded = set(got[0]["sharded"])
+    worst_sum = 0.0
+    for k, leaf in ref["leaves"].items():
+        for part in "pmv":
+            mine = (got[0]["sums"][part][k] + got[1]["sums"][part][k] if k in sharded
+                    else got[0]["sums"][part][k])
+            count = math.prod(leaf["shape"])
+            per = TP_P_CLOSE if part == "p" else tp_band(part, leaf)
+            ratio = abs(mine - leaf[part]["sum"]) / max(count * per, 1e-30)
+            worst_sum = max(worst_sum, ratio)
+            check(ratio <= 1.0, f"[tp] {part}.{k}'s sum {mine} against the one-process "
+                                f"{leaf[part]['sum']}")
+    tp_ms = [float(np.median(got[r]["walls"][1:])) for r in (0, 1)]
+    one_ms = float(np.median(ref["walls"][1:]))
+    t0 = min(got[r]["times"]["start"] for r in (0, 1))
+    stamps = {k: max(got[r]["times"][k] for r in (0, 1)) - t_spawn
+              for k in ("start", "ready", "go", "built", "trained", "held")}
+    secs = time.perf_counter() - t_phase
+    print(f"[tp] gemma2-2b full width, {cfg.n_layers} of 26 layers, fp32 compute (TF32 off), "
+          f"TokenPipeline(vocab {cfg.vocab_size}, seq {TP_SEQ}, batch {TP_BATCH}, seed 0), "
+          f"{TP_STEPS} AdamW steps at lr {TP_LR} constant: one process losses {ref['losses']} "
+          f"grad norms {ref['grad_norms']}; two processes on cuda:0 over a (1, 2) mesh "
+          f"(model axis: a gloo group; FSDP2's 1-rank data axis: gloo too; units split "
+          f"{got[0]['split']}) losses {got[0]['losses']} grad norms {got[0]['grad_norms']} "
+          f"(rank 1 {got[1]['losses']} {got[1]['grad_norms']})", flush=True)
+    print(f"[tp] held on {TP_SAMPLES} seeded elements of each of {len(ref['leaves'])} leaves "
+          f"({got[0]['compared']} + {got[1]['compared']} compared): worst gap / band "
+          + ", ".join(f"{part} {max(got[r]['worst'][part][0] for r in (0, 1)):.3f}"
+                      for part in "pmv")
+          + f"; param elements past {TP_P_CLOSE}: {got[0]['far']} + {got[1]['far']} "
+          f"({far_share:.2e}, gate {TP_P_FAR_SHARE}); the initial params (no update) would read "
+          f"p {idle_ratio:.3f} of the band and {idle_far_share:.4f} past {TP_P_CLOSE}"
+          f"; each leaf's fp64 sum: worst gap / band {worst_sum:.3e}; state bytes a rank "
+          f"allocated {got[0]['allocated']} and {got[1]['allocated']} against the dry-run's "
+          f"{predicted} on a 1 x 2 mesh ({abs(got[0]['allocated'] - predicted) / predicted:.2e} "
+          f"apart, gate {ARG_GATE}); kernel launches {got[0]['launches']}", flush=True)
+    print(f"[tp] step ms (median of steps 1-{TP_STEPS - 1}): one process {one_ms:.1f} "
+          f"(peak {ref['peak_gb']:.2f} GB), two processes {tp_ms[0]:.1f} and {tp_ms[1]:.1f} "
+          f"(peaks {got[0]['peak_gb']:.2f} and {got[1]['peak_gb']:.2f} GB a rank) -- gloo "
+          f"through the host, which measures nothing of tensor parallelism over NVLink; "
+          f"{card_line()}; seconds from the spawn: ranks started {stamps['start']:.1f}, ready "
+          f"{stamps['ready']:.1f}, one-process run done {t_ref - t_spawn:.1f}, states built "
+          f"{stamps['built']:.1f}, trained {stamps['trained']:.1f}, held {stamps['held']:.1f} "
+          f"(first rank up {t0 - t_spawn:.1f}); phase 13 took {secs:.1f} s", flush=True)
+    return {"ref": {k: ref[k] for k in ("losses", "grad_norms", "walls", "peak_gb")},
+            "far_share": far_share, "idle_far_share": idle_far_share, "idle_ratio": idle_ratio,
+            "ranks": {r: {k: v for k, v in res.items() if k != "sums"} for r, res in got.items()},
+            "predicted": predicted, "tp_ms": tp_ms, "one_ms": one_ms, "seconds": secs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=2_140_000)
@@ -3956,6 +4310,10 @@ def main(argv=None) -> int:
     cli_phase()
     print(f"[cli] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
     served["11"] = qwen32_phase(tr)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = tp_phase()
+    print(f"[smoke] phase 13 (tensor-parallel training) took {tp['seconds']:.1f} s", flush=True)
     print(f"[smoke] phase 10 (training) took {tr['seconds']:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -27,7 +27,11 @@ nor ``repro``; it reads plain attributes and arrays):
   :func:`model_params_from_reference`, and back (weights or grads) ->
   :func:`params_to_reference`; a training state (``TrainState``: params,
   the optimizer's step and moments) both ways ->
-  :func:`train_state_from_reference`, :func:`train_state_to_reference`;
+  :func:`train_state_from_reference`, :func:`train_state_to_reference`
+  (whole tensors in the reference's layout: ``launch.train.
+  make_sharded_train_step`` places a carried state onto any mesh, and
+  ``launch.train.full_state`` makes a state sharded on one whole before
+  it is carried back);
   the RAG server's projection -> :func:`retrieval_server`.
 
 :func:`install` puts the first five into a built engine.
@@ -314,7 +318,9 @@ def train_state_to_reference(model: Model, state: TrainState) -> TrainState:
     ``m``, ``v`` as :func:`params_to_reference` trees, ``step`` a 0-d
     int32 array.  Its fields have the reference's names, so a
     ``Checkpointer`` of either package saves it under the reference's keys
-    (``.params/...``, ``.opt/.step``, ``.opt/.m/...``)."""
+    (``.params/...``, ``.opt/.step``, ``.opt/.m/...``).  ``state`` holds
+    whole tensors: a state sharded on a mesh (``make_sharded_train_step``'s)
+    is made whole first, by ``launch.train.full_state``."""
     return TrainState(
         params=params_to_reference(model, state.params),
         opt=AdamWState(step=np.asarray(state.opt.step.cpu().numpy(), np.int32),
@@ -329,7 +335,12 @@ def train_state_from_reference(cfg, state_np, device=DEFAULT_DEVICE,
     a restored checkpoint's tree) -> (a trainable :class:`Model` holding
     its params, a port ``TrainState`` over that model's parameters, its
     moments fp32 on ``device``).  With ``model`` the params are copied into
-    it (made trainable first) instead of into a new one."""
+    it (made trainable first) instead of into a new one; it must hold
+    whole weights (``make_sharded_train_step`` then places the state onto
+    a mesh)."""
+    if model is not None and model.model_axis is not None:
+        raise ValueError("a model cut over a model axis takes no whole state: load it into "
+                         "a whole model, then place both with make_sharded_train_step")
     if model is None:
         model = Model(cfg, device=device)
     _load(model.trainable(), state_np.params)

@@ -8,7 +8,11 @@
 * :mod:`~repro_torch.dist.elastic` — mesh replanning after host loss;
 * :mod:`~repro_torch.dist.sharding` — parameter-name -> spec rules, and
   their DTensor placements for parameters, batches and decode caches on a
-  ``DeviceMesh``.
+  ``DeviceMesh``;
+* :mod:`~repro_torch.dist.tensor_parallel` — the model axis of a train
+  step: the weights cut where the rules put them, split units between
+  ``copy_to_model`` and ``reduce_from_model``, gathered weights, one
+  all-reduce each.
 """
 from .collectives import compressed_psum, merge_topk, merge_topk_unique, psum_with_error_feedback
 from .elastic import replan_mesh

@@ -32,11 +32,18 @@ d, else ``Replicate()``), with the reference's divisibility guard: a dim
 the mesh cannot split evenly is replicated (DTensor would allow uneven
 shards; the reference does not).  :func:`shard` distributes tensors by
 such placements (under ``FakeTensorMode`` it allocates nothing).
+
+:func:`model_dim` and :func:`local_shard` say what one rank holds without
+a ``DeviceMesh``: the dim the model axis cuts under the guard, and the
+block of a whole tensor at given mesh coordinates under given placements
+(``Shard(d)`` cuts dim d into equal chunks, mesh dims in order).  The
+tensor-parallel step (``dist.tensor_parallel``) cuts the weights on the
+model axis with them, and the tests check each rank's shards by them.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -50,6 +57,8 @@ __all__ = [
     "data_axes",
     "placements",
     "shard",
+    "model_dim",
+    "local_shard",
 ]
 
 Spec = Tuple  # one entry a tensor dim: None, an axis name, or a tuple of names
@@ -210,3 +219,28 @@ def shard(mesh, tensors, placement_tree):
     if isinstance(tensors, Mapping):
         return {k: shard(mesh, v, placement_tree[k]) for k, v in tensors.items()}
     return distribute_tensor(tensors, mesh, list(placement_tree))
+
+
+def model_dim(name: str, shape: Sequence[int], n_model: int) -> Optional[int]:
+    """The dim of the port's parameter ``name`` (whole ``shape``) that a
+    model axis of ``n_model`` shards, under the reference's divisibility
+    guard; None where the weight stays replicated on it."""
+    spec = _guard_divisible({"model": n_model}, named_param_spec(name, shape, ()), shape)
+    dims = [d for d, entry in enumerate(spec) if entry == "model"]
+    return dims[0] if dims and n_model > 1 else None
+
+
+def local_shard(t: torch.Tensor, placement: Sequence, sizes: Sequence[int],
+                coords: Sequence[int]) -> torch.Tensor:
+    """The block of the whole tensor ``t`` that the rank at mesh
+    ``coords`` holds under ``placement`` (one entry a mesh dim, as
+    :func:`param_sharding` gives them) on a mesh of ``sizes``: each
+    ``Shard(d)`` cuts dim d into equal chunks, in mesh-dim order (two mesh
+    dims on one tensor dim cut it major first, as DTensor does).  A view."""
+    from torch.distributed.tensor import Shard
+
+    for p, n, c in zip(placement, sizes, coords):
+        if isinstance(p, Shard):
+            size = t.shape[p.dim] // n
+            t = t.narrow(p.dim, c * size, size)
+    return t

@@ -27,7 +27,9 @@ imported only here), made for each cell and torn down after it.  Per cell:
   step allocates beyond its inputs (weak references on storages, as
   ``torch.distributed._tools.mem_tracker.MemTracker`` keeps; MemTracker's
   own module tracking refuses a layer called once a microbatch).  The
-  model axis is not applied (``temp_scope``), so on a mesh whose model
+  trace is one device's with every weight whole: the model axis is not
+  applied in it (``temp_scope``), though the train step splits over it
+  (``launch.train``, ``dist.tensor_parallel``), so on a mesh whose model
   axis is larger than 1 ``temp_bytes`` is an upper bound.  A fake trace
   costs seconds a layer, so a train or prefill cell of an attention model
   deeper than two periods of its layer pattern is traced at depths p and
@@ -268,6 +270,32 @@ def _traced(cfg, shape) -> Dict[str, Any]:
     return {**out, "trace_depths": list(depths)}
 
 
+def _state_bytes(p_bytes: int) -> int:
+    """A train state's bytes from its params': params, m and v fp32, one
+    placement each; the step a 0-d int32."""
+    return 3 * p_bytes + 4
+
+
+def train_state_bytes(cfg, mesh_shape) -> int:
+    """One device's bytes of ``cfg``'s training state (fp32 params, m and
+    v, the int32 step) under the ``dist.sharding`` plan on a mesh of
+    ``mesh_shape`` (data, model): a train cell's ``argument_bytes`` less
+    its batch's, without tracing the step (fake tensors over a fake group,
+    made and torn down here)."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..models.model import Model
+
+    mesh = _fake_mesh(False, mesh_shape)
+    try:
+        with FakeTensorMode():
+            params = dict(Model(cfg, device="cpu").trainable().named_parameters())
+            return _state_bytes(_local_bytes(mesh, params, param_sharding(mesh, params)))
+    finally:
+        dist.destroy_process_group()
+
+
 def lower_cell(arch: str, shape_name: str, multi_pod: bool, mesh_shape=None,
                kv_int8: bool = False) -> Dict[str, Any]:
     """One dry-run cell (the reference's name for it kept): the record of
@@ -314,8 +342,7 @@ def cell_record(cfg, shape, multi_pod: bool = False, mesh_shape=None,
                 batch = specs["batch"]
                 in_bytes = _local_bytes(mesh, batch, batch_sharding(mesh, batch, b))
                 if shape.kind == "train":
-                    # params, m and v: fp32, one placement each; step: 0-d int32
-                    state_b = 3 * p_bytes + 4
+                    state_b = _state_bytes(p_bytes)
                     args_b = state_b + in_bytes
                     out_b = state_b + 6 * 4                 # the state, six 0-d metrics
                 else:
@@ -363,7 +390,8 @@ def cell_record(cfg, shape, multi_pod: bool = False, mesh_shape=None,
         "trace_depths": traced["trace_depths"] if traced else None,
         "temp_scope": (f"one device traced at batch {b_loc} (the global batch over the data "
                        f"axes) with every weight whole; the model axis ({n_model}) is not "
-                       "applied" + (", so this is an upper bound" if n_model > 1 else "")
+                       "applied in this trace, though the train step splits over it"
+                       + (", so this is an upper bound" if n_model > 1 else "")
                        + ("" if not traced or traced["trace_depths"] == [cfg.n_layers] else
                           f"; extrapolated to {cfg.n_layers} layers from traces at depths "
                           f"{traced['trace_depths']}")),

@@ -14,16 +14,16 @@ mesh is ``make_local_mesh()`` (world size x 1; one process without
 ``torchrun`` makes its own 1-rank group) or, with ``--production-mesh``,
 ``make_production_mesh()``, as in the reference.
 
-:func:`make_sharded_train_step` is the data-parallel (FSDP) half of the
-reference's ``jax.jit(step, in_shardings=...)``: FSDP2 shards the state
-over the mesh's data axes, one unit a decoder layer (or xLSTM group) and
-one at the root, each weight on the dim where ``dist.sharding`` puts the
-data axes.  A mesh whose ``model`` axis is larger than 1 needs
-tensor-parallel training, which is not ported: it raises
-``NotImplementedError`` before anything is allocated, and so does the
-production mesh (16 x 16, model axis 16).  Checkpoints hold full tensors
-in the reference's layout (``carry.train_state_to_reference``), so either
-package's CLI resumes the other's.
+:func:`make_sharded_train_step` is the reference's ``jax.jit(step,
+in_shardings=...)`` over any mesh: every weight and moment is held where
+``dist.sharding`` puts it.  On the model axis ``dist.tensor_parallel``
+cuts the weights and splits the compute (all-reduce only); over the data
+axes FSDP2 shards the blocks, one unit a decoder layer (or xLSTM group or
+encoder layer) and one at the root, each on the dim where the rules put
+the data axes, and the weights the rules replicate there stay whole on
+every rank.  Checkpoints hold full tensors in the reference's layout
+(``full_state`` -> ``carry.train_state_to_reference``), so either
+package's CLI resumes the other's, on any mesh.
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ from ..configs import get_config
 from ..data.pipeline import TokenPipeline
 from ..device import resolve_device
 from ..dist.fault import HeartbeatMonitor, StragglerMitigator
-from ..dist.sharding import data_axes, named_param_spec
+from ..dist.sharding import data_axes, param_sharding
+from ..dist.tensor_parallel import shard_model
 from ..models.model import Model
 from ..train import schedule as schedules
 from ..train.optimizer import AdamWConfig, AdamWState
@@ -50,50 +51,42 @@ from .mesh import PRODUCTION_SHAPE, ensure_process_group, make_local_mesh, make_
 
 __all__ = ["make_sharded_train_step", "data_mesh", "full_state", "main"]
 
-TENSOR_PARALLEL_ITEM = "ROADMAP Queue 1 item 13.5"
-
-
-def _refuse(why: str):
-    raise NotImplementedError(
-        f"{why}: tensor-parallel training (a mesh whose model axis is larger than 1) is not "
-        f"ported to repro_torch yet ({TENSOR_PARALLEL_ITEM}); item 13.2 ported the "
-        "data-parallel mesh, make_local_mesh()")
-
 
 def data_mesh(mesh):
     """The 1-D mesh over ``mesh``'s data axes (flattened when there are
-    several), which FSDP2 shards over; raises ``NotImplementedError`` for
-    a model axis larger than 1."""
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    if sizes.get("model", 1) > 1:
-        _refuse(f"a mesh with a model axis of {sizes['model']}")
+    several), which FSDP2 shards over."""
     axes = data_axes(mesh)
     return mesh[axes[0]] if len(axes) == 1 else mesh[axes]._flatten()
 
 
-def _placement_fn(model: Model, n_data: int, d_axes) -> Callable:
-    """FSDP2's ``shard_placement_fn``: ``Shard(d)`` on the dim where
-    ``dist.sharding`` puts the data axes (the input dim of a column-parallel
-    weight, the output dim of a row-parallel one), when they divide it;
-    None (FSDP2's default ``Shard(0)``) for the leaves the reference
-    replicates."""
+def _data_placements(mesh, model: Model) -> Dict[str, object]:
+    """Each parameter's placement over the data axes, from
+    ``dist.sharding``'s rules on its whole shape: ``Shard(d)`` where they
+    put the data axes on dim d (the input dim of a column-parallel weight,
+    the output dim of a row-parallel one), None where they replicate it
+    (norm scales, the embedding, a dim the data axes do not divide)."""
     from torch.distributed.tensor import Shard
 
-    place = {}
-    for name, p in model.named_parameters():
-        spec = named_param_spec(name, p.shape, d_axes)
-        dims = [d for d, e in enumerate(spec) if e == d_axes and p.shape[d] % n_data == 0]
-        place[id(p)] = Shard(dims[0]) if dims else None
-    return lambda p: place.get(id(p))
+    d_dims = [i for i, a in enumerate(mesh.mesh_dim_names) if a != "model"]
+    out = {}
+    for name, placement in param_sharding(mesh, dict(model.named_parameters())).items():
+        on_data = [placement[i] for i in d_dims]
+        out[name] = on_data[0] if all(isinstance(p, Shard) for p in on_data) else None
+    return out
 
 
 def make_sharded_train_step(model: Model, mesh, state: TrainState,
                             opt_cfg: AdamWConfig = AdamWConfig(),
                             schedule: Callable = schedules.warmup_cosine,
                             grad_accum: int = 1) -> Tuple[Callable, TrainState]:
-    """Shard ``model`` and ``state`` (full tensors: ``init_train_state``'s,
-    or a restored checkpoint's) over ``mesh``'s data axes with FSDP2.
-    Returns ``(train_step, sharded_state)``: ``train_step`` is
+    """Place ``model`` and ``state`` (full tensors, the same on every rank:
+    ``init_train_state``'s, or a restored checkpoint's) where
+    ``dist.sharding`` puts them on ``mesh``.  A model axis larger than 1
+    cuts each weight and moment to this rank's block and splits the
+    compute over its group (``dist.tensor_parallel.shard_model``,
+    ``Model.model_group``); FSDP2 then shards the blocks over the data
+    axes, and the weights the rules replicate there stay whole.  Returns
+    ``(train_step, sharded_state)``: ``train_step`` is
     ``make_train_step``'s over the data axes' process group, which takes
     the GLOBAL batch, every rank the same, and gives the one-process step's
     update of the whole batch."""
@@ -101,31 +94,49 @@ def make_sharded_train_step(model: Model, mesh, state: TrainState,
     from torch.distributed.tensor import distribute_tensor
 
     dmesh = data_mesh(mesh)
-    place = _placement_fn(model, dmesh.size(), data_axes(mesh))
+    on_data = _data_placements(mesh, model)
+    axis = None
+    if dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1) > 1:
+        axis = shard_model(model, mesh["model"].get_group())
+    named = dict(model.named_parameters())
+    by_id = {id(p): on_data[k] for k, p in named.items()}
+    kept = {p for k, p in named.items() if on_data[k] is None}
     units = list(model.blocks if model.cfg.family == "ssm" else model.layers)
     if model.cfg.is_encdec:
         units += list(model.enc_layers)
-    for unit in units:
-        fully_shard(unit, mesh=dmesh, shard_placement_fn=place)
-    fully_shard(model, mesh=dmesh, shard_placement_fn=place)
+    for unit in units + [model]:
+        fully_shard(unit, mesh=dmesh, shard_placement_fn=lambda p: by_id.get(id(p)),
+                    ignored_params=kept)
     register_fsdp_forward_method(model, "loss")
     params = dict(model.named_parameters())
 
     def moments(full: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return {k: distribute_tensor(full[k].detach().to(p.device, torch.float32), dmesh,
-                                     p.placements, src_data_rank=None)
-                for k, p in params.items()}
+        out = {}
+        for k, p in params.items():
+            t = full[k].detach().to(p.device, torch.float32)
+            # a copy of this rank's block: no view keeps the whole tensor alive
+            t = (axis.block(t, k) if axis is not None else t).clone()
+            out[k] = (distribute_tensor(t, dmesh, p.placements, src_data_rank=None)
+                      if hasattr(p, "placements") else t)
+        return out
 
     sharded = TrainState(params=params, opt=AdamWState(
         step=state.opt.step, m=moments(state.opt.m), v=moments(state.opt.v)))
     return make_train_step(model, opt_cfg, schedule, grad_accum, group=dmesh.get_group()), sharded
 
 
-def full_state(state: TrainState) -> TrainState:
-    """A sharded ``TrainState`` with every tensor gathered whole (a
-    collective: every rank calls it)."""
+def full_state(model: Model, state: TrainState) -> TrainState:
+    """``make_sharded_train_step``'s state of ``model`` with every tensor
+    gathered whole over the data axes and the model axis
+    (``model.model_axis``; a collective: every rank calls it)."""
+    axis = model.model_axis
+
     def full(tree):
-        return {k: t.full_tensor() if hasattr(t, "full_tensor") else t for k, t in tree.items()}
+        out = {}
+        for k, t in tree.items():
+            t = t.full_tensor() if hasattr(t, "full_tensor") else t
+            out[k] = axis.whole(t, k) if axis is not None else t
+        return out
 
     return TrainState(params=full(state.params),
                       opt=AdamWState(step=state.opt.step, m=full(state.opt.m),
@@ -153,8 +164,8 @@ def main(argv=None):
         world = (dist.get_world_size() if dist.is_initialized()
                  else int(os.environ.get("WORLD_SIZE", "1")))
         if world != math.prod(PRODUCTION_SHAPE):
-            _refuse(f"--production-mesh needs {' x '.join(map(str, PRODUCTION_SHAPE))} ranks "
-                    f"and this run has {world}; its model axis is {PRODUCTION_SHAPE[1]}")
+            raise ValueError(f"--production-mesh needs {math.prod(PRODUCTION_SHAPE)} ranks "
+                             f"({' x '.join(map(str, PRODUCTION_SHAPE))}); this run has {world}")
     made_group = ensure_process_group(device.type)
     try:
         return _train(args, device)
@@ -172,7 +183,6 @@ def _train(args, device: torch.device):
         device = torch.device("cuda", torch.cuda.current_device())
     mesh = (make_production_mesh(device_type=device.type) if args.production_mesh
             else make_local_mesh(device.type))
-    data_mesh(mesh)                           # refuses a model axis > 1 before allocating
     rank, world = dist.get_rank(), dist.get_world_size()
     say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch)
@@ -212,7 +222,7 @@ def _train(args, device: torch.device):
             say(f"step {step_i:4d} loss {loss:8.4f} "
                 f"gnorm {float(metrics['grad_norm']):7.3f} {dt*1e3:7.1f} ms")
         if ckpt and (step_i + 1) % args.ckpt_every == 0:
-            whole = full_state(state)
+            whole = full_state(model, state)
             if rank == 0:
                 ckpt.save_async(step_i + 1, train_state_to_reference(model, whole))
             del whole

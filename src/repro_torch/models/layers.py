@@ -202,7 +202,7 @@ def moe_init(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Optional[floa
             "w_up": ((e, d, f), d ** -0.5), "w_down": ((e, f, d), f ** -0.5)}
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, group=None
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, group=None, axis=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k MoE with per-sequence capacity, as the reference's
     ``moe_ffn``: router softmax in fp32, top k (equal probabilities in
@@ -218,7 +218,15 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, group=None
     batch's rows.  The routing density is then averaged over it, so that
     the mean of the ranks' aux losses is the whole batch's (the product of
     the batch's density and its mean probabilities, as GSPMD computes it
-    over the global batch), and so are their gradients."""
+    over the global batch), and so are their gradients.
+
+    ``axis``: a ``dist.tensor_parallel.ModelAxis``.  Every rank routes
+    every token (the tokens are replicated over the model axis, so the
+    drops, ``moe_drop_log`` and the aux loss are the same on each); when
+    the axis splits the experts, ``p``'s expert weights are this rank's
+    E / n experts, each rank fills and runs only their slots of the
+    buffer, and the tokens' weighted sums are summed over the axis (the
+    shared expert's too when the axis splits its MLP)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k_experts
     dt = x.dtype
@@ -250,9 +258,19 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, group=None
         moe_drop_log.append((~keep).sum())
     slot_c = torch.clamp_max(slot, cap - 1)
     rows = torch.arange(b, device=dev)[:, None].expand(b, s * k)
-    xs = torch.where(keep[..., None], x[rows, t_sort], torch.zeros((), dtype=dt, device=dev))
-    buf = torch.zeros((b, e, cap, d), dtype=dt, device=dev)
-    buf.index_put_((rows, e_sort, slot_c), xs, accumulate=True)
+
+    # this rank's experts [e0, e0 + n_local): all E of them unless a model axis splits them
+    split = axis is not None and axis.split["experts"]
+    n_local = e // axis.n if split else e
+    e0 = axis.rank * n_local if split else 0
+    enter = axis.enter if split else (lambda t: t)
+    leave = axis.leave if split else (lambda t: t)
+    mine = keep & (e_sort >= e0) & (e_sort < e0 + n_local)
+    xs = torch.where(mine[..., None], enter(x)[rows, t_sort],
+                     torch.zeros((), dtype=dt, device=dev))
+    buf = torch.zeros((b, n_local, cap, d), dtype=dt, device=dev)
+    buf.index_put_((rows, torch.clamp(e_sort - e0, 0, n_local - 1), slot_c), xs,
+                   accumulate=True)
 
     h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"].to(dt))) * \
         torch.einsum("becd,edf->becf", buf, p["w_up"].to(dt))
@@ -261,10 +279,14 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, group=None
     # back in each token's own top-k order: assignment i went to sorted place inv[i]
     inv = torch.argsort(order, dim=-1)
     slot_of = torch.gather(slot_c, 1, inv)
-    keep_of = torch.gather(keep, 1, inv)
-    w = (topv.reshape(b, s * k) * keep_of).to(dt)
-    y = y_buf[rows, e_flat, slot_of] * w[..., None]                       # (B, S*K, D)
-    out = y.reshape(b, s, k, d).sum(2)
+    mine_of = torch.gather(mine, 1, inv)
+    w = (enter(topv).reshape(b, s * k) * mine_of).to(dt)
+    y = y_buf[rows, torch.clamp(e_flat - e0, 0, n_local - 1), slot_of] * w[..., None]
+    out = leave(y.reshape(b, s, k, d).sum(2))                             # (B, S, D)
     if cfg.moe_shared_expert:
-        out = out + mlp(p["shared"], x.reshape(b * s, d)).reshape(b, s, d)
+        if axis is not None and axis.split["mlp"]:
+            out = out + axis.leave(mlp(p["shared"], axis.enter(x).reshape(b * s, d))
+                                   .reshape(b, s, d))
+        else:
+            out = out + mlp(p["shared"], x.reshape(b * s, d)).reshape(b, s, d)
     return out, aux

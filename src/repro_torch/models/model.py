@@ -232,6 +232,9 @@ class Model(nn.Module):
         # (make_train_step sets it): the MoE layers average their routing
         # density over it
         self.data_group = None
+        # the model axis a tensor-parallel train step cuts the weights over
+        # (dist.tensor_parallel.shard_model sets it); None: every weight whole
+        self.model_axis = None
         dev, dt = self.device, self.dtype
         # allocated as zeros here; init() draws the weights, or carry loads them
         self.embed = nn.Parameter(torch.zeros((cfg.vocab_size, cfg.d_model), device=dev, dtype=dt),
@@ -252,6 +255,42 @@ class Model(nn.Module):
             self.enc_layers = nn.ModuleList(EncoderLayer(cfg, dev, dt)
                                             for _ in range(cfg.n_enc_layers))
             self.enc_final_ln = _vector(cfg.d_model, dev, dt)
+
+    @property
+    def model_group(self):
+        """The model axis's process group (None without one)."""
+        return None if self.model_axis is None else self.model_axis.group
+
+    def _split(self, unit: str) -> bool:
+        """Whether ``unit`` ("attn", "mlp", "experts", "vocab") runs split
+        over the model axis."""
+        return self.model_axis is not None and self.model_axis.split[unit]
+
+    def _w(self, pd: "Params"):
+        """``pd``'s weights as this rank's compute reads them: ``pd``
+        itself without a model axis; else each weight gathered, passed
+        through or read as its block (``ModelAxis.weights``)."""
+        return pd if self.model_axis is None else self.model_axis.weights(pd)
+
+    def _attn_cfg(self) -> ModelConfig:
+        """The config attention runs under: this rank's heads when it runs
+        split over the model axis."""
+        return self.cfg if self.model_axis is None else self.model_axis.attn_cfg
+
+    def _enter(self, x: torch.Tensor, unit: str) -> torch.Tensor:
+        """The input of ``unit``: through ``copy_to_model`` when it runs split."""
+        return self.model_axis.enter(x) if self._split(unit) else x
+
+    def _leave(self, y: torch.Tensor, unit: str) -> torch.Tensor:
+        """The output of ``unit``: summed over the model axis when it runs split."""
+        return self.model_axis.leave(y) if self._split(unit) else y
+
+    def _whole_weights(self) -> None:
+        """Raise for a serving call on a model cut over a model axis."""
+        if self.model_axis is not None:
+            raise NotImplementedError(
+                "prefill and decode_step read whole weights; this model's weights are cut "
+                "over a model axis for training (launch.train.make_sharded_train_step)")
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -312,19 +351,31 @@ class Model(nn.Module):
         return torch.as_tensor(tokens, device=self.device).long()
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens].to(self.dtype)
+        if self._split("vocab"):
+            # this rank's rows of the vocab: the others' ids look up zeros,
+            # and the sum over the model axis has every id's row
+            local, inside = self.model_axis.vocab_mask(tokens)
+            rows = torch.where(inside[..., None], self.embed[local],
+                               torch.zeros((), dtype=self.embed.dtype, device=self.device))
+            x = self.model_axis.leave(rows).to(self.dtype)
+        else:
+            x = self.embed[tokens].to(self.dtype)
         if self.cfg.embed_scale:
             x = x * torch.as_tensor(self.cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = rms_norm(x, self.final_ln, cfg.norm_eps)
-        return softcap((x @ self._head(x.dtype)).float(), cfg.final_softcap)
+        x = self._enter(rms_norm(x, self.final_ln, cfg.norm_eps), "vocab")
+        logits = softcap((x @ self._head(x.dtype)).float(), cfg.final_softcap)
+        if self._split("vocab"):
+            logits = self.model_axis.gather(logits, logits.dim() - 1)
+        return logits
 
     def _head(self, dtype: torch.dtype) -> torch.Tensor:
         """The (D, V) output projection in the compute type: the tied
-        embedding's transpose or ``lm_head``."""
+        embedding's transpose or ``lm_head`` (this rank's vocab columns
+        when the vocab runs split over the model axis)."""
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return head.to(dtype)
 
@@ -332,10 +383,12 @@ class Model(nn.Module):
                     positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Self-attention sub-block with residual; also returns the layer's
         k and v (B, S, KV, dh) for the cache."""
-        cfg = self.cfg
-        h = rms_norm(x, lp.ln1, cfg.norm_eps)
-        q, k, v = attn_qkv(lp.attn, h, cfg, positions)
-        o = attn_out(lp.attn, flash_attention(q, k, v, window, cfg.attn_softcap), cfg)
+        cfg, acfg = self.cfg, self._attn_cfg()
+        p = self._w(lp.attn)
+        h = self._enter(rms_norm(x, lp.ln1, cfg.norm_eps), "attn")
+        q, k, v = attn_qkv(p, h, acfg, positions)
+        o = attn_out(p, flash_attention(q, k, v, window, cfg.attn_softcap), acfg)
+        o = self._leave(o, "attn")
         if cfg.post_norms:
             o = rms_norm(o, lp.ln1b, cfg.norm_eps)
         return x + o, k, v
@@ -348,22 +401,26 @@ class Model(nn.Module):
         dh) through the non-causal ``flash_attention``.  Decode form (x
         (B, 1, D), ``length`` (B,) = F): xk/xv (B, KV, F, dh) through the
         decode kernel."""
-        cfg = self.cfg
-        h = rms_norm(x, lp.ln_x, cfg.norm_eps)
+        cfg = self._attn_cfg()
+        p = self._w(lp.xattn)
+        h = self._enter(rms_norm(x, lp.ln_x, cfg.norm_eps), "attn")
         b, s, _ = h.shape
-        q = (h @ lp.xattn.wq.to(h.dtype)).reshape(
+        q = (h @ p["wq"].to(h.dtype)).reshape(
             b, s, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.dh)
         if length is None:
             o = flash_attention(q, xk, xv, causal=False)
         else:
             o = decode_attention(q[:, 0], xk, xv, length).to(x.dtype)[:, None]
-        return x + attn_out(lp.xattn, o, cfg)
+        return x + self._leave(attn_out(p, o, cfg), "attn")
 
-    @staticmethod
-    def _cross_kv(lp0: DecoderLayer, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _cross_kv(self, lp0: DecoderLayer, enc_out: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The encoder output (B, F, D) under layer 0's ``xattn.wk`` and
-        ``wv``: the cross-attention keys and values (B, F, KV * dh)."""
-        return enc_out @ lp0.xattn.wk.to(enc_out.dtype), enc_out @ lp0.xattn.wv.to(enc_out.dtype)
+        ``wv``: the cross-attention keys and values (B, F, KV * dh; this
+        rank's KV groups when attention runs split)."""
+        p = self._w(lp0.xattn)
+        h = self._enter(enc_out, "attn")
+        return h @ p["wk"].to(h.dtype), h @ p["wv"].to(h.dtype)
 
     def _encoder(self, frames) -> Tuple[torch.Tensor, torch.Tensor]:
         """The bidirectional encoder over stub frame embeddings (B, F, D),
@@ -379,23 +436,26 @@ class Model(nn.Module):
             x = lp(self._remat, self._enc_layer, lp, x, positions)
         enc_out = rms_norm(x, self.enc_final_ln, cfg.norm_eps)
         lp0 = self.layers[0]
-        shape = enc_out.shape[:2] + (cfg.n_kv_heads, cfg.dh)
+        shape = enc_out.shape[:2] + (self._attn_cfg().n_kv_heads, cfg.dh)
         return tuple(t.reshape(shape) for t in lp0(self._cross_kv, lp0, enc_out))
 
     def _enc_layer(self, lp: EncoderLayer, x: torch.Tensor, positions: torch.Tensor
                    ) -> torch.Tensor:
         """One encoder layer: non-causal self-attention (no window, no
         softcap, no post-norms) and the dense MLP, each with residual."""
-        cfg = self.cfg
-        q, k, v = attn_qkv(lp.attn, rms_norm(x, lp.ln1, cfg.norm_eps), cfg, positions)
-        x = x + attn_out(lp.attn, flash_attention(q, k, v, causal=False), cfg)
-        return x + mlp(lp.ffn, rms_norm(x, lp.ln2, cfg.norm_eps))
+        cfg, acfg = self.cfg, self._attn_cfg()
+        p = self._w(lp.attn)
+        h = self._enter(rms_norm(x, lp.ln1, cfg.norm_eps), "attn")
+        q, k, v = attn_qkv(p, h, acfg, positions)
+        x = x + self._leave(attn_out(p, flash_attention(q, k, v, causal=False), acfg), "attn")
+        h = self._enter(rms_norm(x, lp.ln2, cfg.norm_eps), "mlp")
+        return x + self._leave(mlp(self._w(lp.ffn), h), "mlp")
 
     def _mamba_block(self, lp: DecoderLayer, x: torch.Tensor, state=None):
         """A hybrid layer's Mamba head on the post-attention residual, which
         re-uses the layer's ``ln1``; returns (x + its output, its state)."""
         h = rms_norm(x, lp.ln1, self.cfg.norm_eps)
-        m_out, st = ssm.mamba_seq(lp.mamba, h, self.cfg, state)
+        m_out, st = ssm.mamba_seq(self._w(lp.mamba), h, self.cfg, state)
         return x + m_out, st
 
     def _ffn_block(self, lp: DecoderLayer, x: torch.Tensor, aux=0.0):
@@ -404,10 +464,10 @@ class Model(nn.Module):
         cfg = self.cfg
         h = rms_norm(x, lp.ln2, cfg.norm_eps)
         if cfg.is_moe:
-            f, a = moe_ffn(lp.ffn, h, cfg, self.data_group)
+            f, a = moe_ffn(self._w(lp.ffn), h, cfg, self.data_group, self.model_axis)
             aux = aux + a
         else:
-            f = mlp(lp.ffn, h)
+            f = self._leave(mlp(self._w(lp.ffn), self._enter(h, "mlp")), "mlp")
         if cfg.post_norms:
             f = rms_norm(f, lp.ln2b, cfg.norm_eps)
         return x + f, aux
@@ -438,7 +498,7 @@ class Model(nn.Module):
                 y, new = step_fn(p, h[:, 0], cfg, st)
                 y = y[:, None]
             else:
-                y, new = seq_fn(p, h, cfg)
+                y, new = seq_fn(self._w(p), h, cfg)
             if cache is not None:
                 for k, t in cache[key].items():
                     t[at] = new[k]
@@ -512,7 +572,7 @@ class Model(nn.Module):
         cfg = self.cfg
         x, aux = self._hidden(batch)
         labels = self._tokens(batch["labels"])
-        x = rms_norm(x, self.final_ln, cfg.norm_eps)
+        x = self._enter(rms_norm(x, self.final_ln, cfg.norm_eps), "vocab")
         head = self._head(x.dtype)
         s = x.shape[1]
         ch = min(CE_CHUNK, s)
@@ -530,9 +590,19 @@ class Model(nn.Module):
 
     def _chunk_ce(self, xc: torch.Tensor, lc: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
         """Summed cross-entropy of one chunk (B, ch, D) against labels
-        (B, ch), in fp32."""
+        (B, ch), in fp32.  With the vocab split over the model axis each
+        rank holds its columns' logits only: the max, the sum of
+        exponentials and the label's logit are each reduced over the axis."""
         logits = softcap((xc @ head).float(), self.cfg.final_softcap)
         valid = lc >= 0
+        if self._split("vocab"):
+            axis = self.model_axis
+            m = axis.max(logits.amax(-1))
+            lse = m + torch.log(axis.leave(torch.exp(logits - m[..., None]).sum(-1)))
+            local, inside = axis.vocab_mask(torch.clamp_min(lc, 0))
+            ll = torch.gather(logits, -1, local[..., None])[..., 0]
+            ll = axis.leave(torch.where(inside, ll, torch.zeros((), device=ll.device)))
+            return torch.where(valid, lse - ll, torch.zeros((), device=lse.device)).sum()
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, torch.clamp_min(lc, 0)[..., None])[..., 0]
         return torch.where(valid, lse - ll, torch.zeros((), device=lse.device)).sum()
@@ -612,6 +682,7 @@ class Model(nn.Module):
         the cache's first P positions; an encdec model's encoder output
         fills the cross cache."""
         cfg = self.cfg
+        self._whole_weights()
         x, n_prefix, (xk, xv) = self._prompt(batch)
         b, s = x.shape[:2]
         if s > max_len:
@@ -651,6 +722,7 @@ class Model(nn.Module):
         copy of ``xk`` and of ``xv`` that every layer reads.  Returns
         (logits (B,V) fp32, the cache, updated in place)."""
         cfg = self.cfg
+        self._whole_weights()
         tokens = self._tokens(tokens)
         lengths = torch.as_tensor(lengths, device=self.device).long()
         x = self._embed(tokens[:, None])                    # (B, 1, D)

@@ -19,7 +19,7 @@ from ..models.model import Model
 from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update, sum_of_squares
 from . import schedule as schedules
 
-__all__ = ["TrainState", "make_train_step", "init_train_state"]
+__all__ = ["TrainState", "make_train_step", "init_train_state", "global_sq_norm"]
 
 
 class TrainState(NamedTuple):
@@ -46,6 +46,34 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
+def global_sq_norm(grads: Dict[str, torch.Tensor], data_sharded, model_sharded,
+                   data_group=None, model_group=None) -> torch.Tensor:
+    """The squared norm of the whole gradient from this rank's blocks:
+    each leaf's blocks summed over the axes that cut it (``data_sharded``
+    names those cut over the data axes, ``model_sharded`` those cut over
+    the model axis), and a leaf replicated over an axis counted once, not
+    once a rank of it.  A collective over both groups."""
+    import torch.distributed as dist
+
+    def part(on_data: bool, on_model: bool) -> torch.Tensor:
+        sel = {k: g for k, g in grads.items()
+               if (k in data_sharded) == on_data and (k in model_sharded) == on_model}
+        return (sum_of_squares(sel) if sel
+                else torch.zeros((), device=next(iter(grads.values())).device))
+
+    both, data_only, model_only, neither = (
+        part(d, m) for d, m in ((True, True), (True, False), (False, True), (False, False)))
+    if data_group is not None:
+        a = torch.stack([both, data_only])
+        dist.all_reduce(a, group=data_group)
+        both, data_only = a[0], a[1]
+    if model_group is not None:
+        b = torch.stack([both, model_only])
+        dist.all_reduce(b, group=model_group)
+        both, model_only = b[0], b[1]
+    return both + data_only + model_only + neither
+
+
 def make_train_step(
     model: Model,
     opt_cfg: AdamWConfig = AdamWConfig(),
@@ -70,8 +98,12 @@ def make_train_step(
     rank's cross-entropy is weighted by its share of the tokens and the
     MoE layers average their routing density over ``group``
     (``Model.data_group``), so that FSDP2's mean of the ranks' gradients
-    is the gradient of the whole batch's loss; the clip uses the norm over
-    every shard, and the metrics are the whole batch's."""
+    is the gradient of the whole batch's loss; a parameter FSDP2 does not
+    hold (one the rules replicate over the data axes) has its gradient
+    averaged over ``group`` here.  The clip uses the norm over every
+    shard, each counted once (``global_sq_norm``), and the metrics are the
+    whole batch's.  A model cut over a model axis
+    (``Model.model_axis``) runs its step on its blocks alike."""
     if group is None:
         n, rank = 1, 0
     else:
@@ -79,6 +111,7 @@ def make_train_step(
 
         n, rank = dist.get_world_size(group), dist.get_rank(group)
     model.data_group = group
+    axis = model.model_axis
 
     def all_sum(t: torch.Tensor) -> torch.Tensor:
         t = t.detach().clone()
@@ -103,6 +136,16 @@ def make_train_step(
         ce, aux = all_sum(met["ce"] * share), all_sum(aux) / n
         return {"loss": ce + 0.01 * aux, "ce": ce, "aux": aux, "tokens": tokens}
 
+    def replicated_grads_mean(params) -> None:
+        """The data-axes mean of the grads of the parameters FSDP2 does
+        not hold (it averages the others in its reduce-scatter)."""
+        if n == 1:
+            return
+        for p in params.values():
+            if p.grad is not None and not hasattr(p.grad, "to_local"):
+                dist.all_reduce(p.grad, group=group)
+                p.grad.div_(n)
+
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         for p in state.params.values():
             p.grad = None
@@ -115,6 +158,7 @@ def make_train_step(
                 metrics = {k: metrics[k] + m_i[k] for k in metrics}
             metrics = {k: v if k == "tokens" else v / grad_accum for k, v in metrics.items()}
         with torch.no_grad():
+            replicated_grads_mean(state.params)
             params = {k: _local(p) for k, p in state.params.items()}
             grads = {k: torch.zeros_like(params[k]) if p.grad is None else _local(p.grad).float()
                      for k, p in state.params.items()}
@@ -124,7 +168,10 @@ def make_train_step(
             opt = AdamWState(step=state.opt.step,
                              m={k: _local(t) for k, t in state.opt.m.items()},
                              v={k: _local(t) for k, t in state.opt.v.items()})
-            sq_norm = None if group is None else all_sum(sum_of_squares(grads))
+            sq_norm = None if group is None and axis is None else global_sq_norm(
+                grads, {k for k, p in state.params.items() if hasattr(p, "to_local")},
+                set() if axis is None else set(axis.dims), group,
+                None if axis is None else axis.group)
             lr_scale = schedule(state.opt.step)
             _, opt, gnorm = adamw_update(params, grads, opt, opt_cfg, lr_scale, sq_norm=sq_norm)
         for p in state.params.values():

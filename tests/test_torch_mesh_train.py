@@ -13,8 +13,12 @@
   lr x the sign of its gradient, which rounding can flip where the
   gradient is near 0).  The MoE case holds the load-balance loss
   to the whole batch's routing, not the mean of the ranks' own;
-* a mesh whose model axis is 2 raises ``NotImplementedError`` naming the
-  tensor-parallel ROADMAP item, before any state is touched;
+* on a (1, 2) mesh over a fake group, ``data_mesh`` is the 1-rank data
+  sub-mesh, and ``make_sharded_train_step`` sets ``model.model_axis`` and
+  cuts every parameter and moment to its block under
+  ``dist.sharding``'s placements (the model axis's step is held to the
+  one-process step in ``test_torch_tp_train.py`` and
+  ``test_torch_tp_families.py``);
 * ``make_local_mesh`` in one process without ``torchrun`` makes a 1-rank
   group itself; importing the mesh module makes none; the production
   meshes on a fake group have the reference's shapes and axis names.
@@ -43,8 +47,9 @@ from repro.train import schedule as ref_schedule
 from repro.train.optimizer import AdamWState as RefAdamWState
 from repro_torch import carry
 from repro_torch.configs import get_config
+from repro_torch.dist.sharding import local_shard, param_sharding
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.launch.train import full_state, make_sharded_train_step
+from repro_torch.launch.train import data_mesh, full_state, make_sharded_train_step
 from repro_torch.models import Model
 from repro_torch.train import AdamWConfig, init_train_state, make_train_step, schedule
 
@@ -95,7 +100,7 @@ def _worker(rank, world, port, arch, queue):
             for batch in _batches(arch, uneven):
                 state, met = step(state, batch)
                 metrics.append(met)
-            runs.append(_numpy(full_state(state), metrics))
+            runs.append(_numpy(full_state(model, state), metrics))
         if rank == 0:
             queue.put(runs)
     finally:
@@ -207,13 +212,30 @@ def fake_group():
         dist.destroy_process_group()
 
 
-def test_model_axis_raises_before_anything_is_touched(fake_group):
+def test_sharded_step_on_a_model_axis_cuts_each_weight_to_its_block(fake_group):
+    """On a (1, 2) mesh over a fake group (rank 0 of 2): ``data_mesh`` is
+    the 1-rank data sub-mesh, and ``make_sharded_train_step`` sets
+    ``model.model_axis`` and leaves every parameter and both its moments
+    with the shape of its block under ``param_sharding``'s placements."""
     fake_group(2)
     mesh = mesh_mod.make_custom_mesh(1, 2, device_type="cpu")
+    dmesh = data_mesh(mesh)
+    assert dmesh.ndim == 1 and dmesh.size() == 1 and dmesh.mesh_dim_names == ("data",)
     model = Model(_cfg(ARCHS[0]), device="cpu")
-    with pytest.raises(NotImplementedError, match="13.5"):
-        make_sharded_train_step(model, mesh, None)
-    assert not any(type(p).__name__ == "DTensor" for p in model.parameters())
+    state = init_train_state(model, torch.Generator().manual_seed(0))
+    whole = {k: p.detach().clone() for k, p in model.named_parameters()}
+    placements = param_sharding(mesh, whole)
+    _, state = make_sharded_train_step(model, mesh, state, OPT, schedule.constant)
+    assert model.model_axis is not None and model.model_axis.n == 2
+    assert model.model_axis.rank == 0 and model.model_axis.dims
+    assert set(state.params) == set(whole)
+    for k, t in whole.items():
+        want = tuple(local_shard(t, placements[k], (1, 2), (0, 0)).shape)
+        cut = k in model.model_axis.dims
+        assert (want != t.shape) == cut, k
+        for tree in (state.params, state.opt.m, state.opt.v):
+            got = tree[k].to_local() if hasattr(tree[k], "to_local") else tree[k]
+            assert tuple(got.shape) == want, k
 
 
 def test_production_meshes_on_a_fake_group(fake_group):

@@ -130,7 +130,7 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
 
 
 def test_train_cli_production_mesh_raises():
-    with pytest.raises(NotImplementedError, match="13.2"):
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         train.main(["--production-mesh", "--reduced", "--device", "cpu"])
 
 
