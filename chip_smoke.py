@@ -44,7 +44,13 @@ Phases, each printed as it runs:
      dh 64, S = F = 1,024, every row full), its self-attention (S 128,
      ragged) and internvl2's (KV 8, GQ 8, dh 128, S 2,320, ragged);
      repeated calls bitwise equal, one CUDA kernel a call; kernel, plain
-     and SDPA times beside the bound;
+     and SDPA times beside the bound; then its split rows: one rank's 2 of
+     a cache's 4 KV heads read in place (kv0 0 and 2; B 4, GQ 2, dh 256,
+     S 8,192, window 4,096, softcap 0 and 50, bf16 and int8) against the
+     plain version on the same heads, bitwise the whole-cache launch's
+     heads, NaN in the other heads never read; the split launch beside the
+     whole-cache launch, the plain version, the library and the bound of
+     the rank's bytes;
   4. the filtered-ANN main path through its public entry points on the
      arxiv dataset at the paper's full size (2.14M x 384): build -> fit ->
      query / batch_query -> ground_truth; then 256 queries under one shared
@@ -236,18 +242,34 @@ Phases, each printed as it runs:
      kernel launched; printed: the step ms of both runs (the two-process
      step is gloo through the host, not tensor parallelism over NVLink),
      each rank's peak, the phase's seconds;
+  13b. tensor-parallel serving by phase 13's two ranks after their
+     training: gemma2-2b at full width and all 26 layers in fp32, built
+     whole from one seed (one rank at a time) and cut over the (1, 2)
+     model axis (attention on 2 of 4 KV heads a rank, the MLP and the
+     256,000-token vocab split), 2 requests of 1,024 and 256 tokens, 8
+     new, max_len 1,040, through ServeEngine (cut from 4 requests and 16
+     new when the script passed 1,080 s); the baseline is this process
+     serving the same requests on the whole model (while the ranks start);
+     gated: each rank's logits at every step within 1e-4 of the step's max
+     |logit|, greedy tokens equal, 4,096 sampled elements of the cache's k
+     and of v within 1e-5 (x max(1, max |sample|)), 26 decode_attention
+     launches a decode step on each rank and in the baseline, no
+     masked_l2_topk, the kernel equal to its plain version over each
+     one's heads of its cache; printed: prefill and decode-step walls of
+     both, peak GB a rank, the phase's seconds;
   5. one JSON line listing every kernel, then the card line, then the
      result line {"ok": true, "device": {...}}.
 
 Each path's kernel launch counts are set to 0 just before it and read
-just after it (phases 4, 4b, 4c, 4d, 4e, 6, 6b-6f, 7, 9, 11, 12, 12b; 4c's routed serving, its
+just after it (phases 4, 4b, 4c, 4d, 4e, 6, 6b-6f, 7, 9, 11, 12, 12b, 13b and each of
+13b's ranks; 4c's routed serving, its
 spanning-head serving and its live serving each; 4d and 4e each as a
 whole, ground truth and rebuilds included, and their serving runs alone:
 in 4e the runtime's own batch_query calls, never the checks of them);
 masked_l2_topk's launches in the kernels line are the sum over phases 4,
 4b, 4c, 4d and 4e (serving runs), decode_attention's over phases 6,
-6b-6f (int8 calls included), 11, 12 and 12b; training (10 and 13's ranks) launches
-neither.  Any failed check raises, so the script
+6b-6f (int8 calls included), 11, 12, 12b and 13b (the baseline and both
+ranks); training (10 and 13's ranks) launches neither.  Any failed check raises, so the script
 exits non-zero and prints no result.  It needs a CUDA card and the repo's
 ``src/`` beside it, and imports nothing of the JAX package.
 """
@@ -2625,6 +2647,131 @@ def decode_frontend_checks() -> dict:
     return {"rows": rows, "max_abs_err": max_err}
 
 
+# phase 3f, split rows: one rank's KV heads of a cache held whole
+# ----------------------------------------------------------------------
+# phase 13b's attention: gemma2-2b's 4 KV heads (GQ 2, dh 256) cut over a
+# model axis of 2, each rank's 2 read in place from the whole cache
+# (B, cache KV, KV a rank, GQ, S, dh, window)
+SPLIT_SHAPE = (4, 4, 2, 2, WINDOW_S, 256, 4096)
+
+
+def decode_split_checks() -> dict:
+    """Phase 3f's split rows: the kernel over one rank's KV heads (kv0 = 0
+    and 2, two of a cache's four) at gemma2-2b's split shape, bf16 and
+    int8 (bf16 dequant), window 4096, softcap 0 and 50, ragged lengths
+    below and above the window, against its plain version on the same
+    heads: within the band of phase 3b; bitwise the heads kv0 .. kv0 + 1
+    of the whole-cache launch; NaN in every other head never reaches the
+    output (the slice is read in place, nothing else).  The split launch's
+    ms (events and profiler device time) beside the whole-cache launch's,
+    the plain version's, the library's (SDPA with the window mask over the
+    slice; int8: dequantize_kv of the slice + SDPA; none with a softcap)
+    and the bound of the rank's bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.decode_attention import (chunk_positions, decode_attention_cuda,
+                                                      tile_elem)
+    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.models.layers import quantize_kv
+
+    t0 = time.perf_counter()
+    b, kvc, kvl, gq, s, dh, window = SPLIT_SHAPE
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    chunk = chunk_positions(s, dh, 2)
+    lengths = [s, 1, window + 1, window + chunk // 2 + 3]           # below, past the window
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q_all = torch.randn((b, kvc, gq, dh), generator=g, device=dev)
+    k32 = torch.randn((b, kvc, s, dh), generator=g, device=dev)
+    v32 = torch.randn((b, kvc, s, dh), generator=g, device=dev)
+    (k8, ks), (v8, vs) = quantize_kv(k32), quantize_kv(v32)
+    caches = {"bf16": (k32.to(torch.bfloat16), v32.to(torch.bfloat16), {}),
+              "int8": (k8, v8, dict(k_scale=ks, v_scale=vs, dequant_dtype=torch.bfloat16))}
+    del k32, v32
+    live = [min(int(n), window) for n in lengths]
+    rows, max_err = {}, 0.0
+    for name, (k, v, extra) in caches.items():
+        elem, scale_bytes = (1, 4) if name == "int8" else (2, 0)
+        check(chunk == chunk_positions(s, dh, tile_elem(k.dtype)), "split: chunk rule")
+        for cap in (0.0, 50.0):
+            whole = decode_attention_cuda(q_all, k, v, length, window, cap, **extra)
+            for kv0 in (0, kvc - kvl):
+                q = q_all[:, kv0:kv0 + kvl].contiguous()
+                tag = (f"split {name} B={b} cache KV={kvc} kv0={kv0} KV={kvl} GQ={gq} S={s} "
+                       f"dh={dh} window {window} softcap {cap:g} (chunk {chunk})")
+                out = decode_attention_cuda(q, k, v, length, window, cap, kv0=kv0, **extra)
+                torch.cuda.synchronize()
+                ref = decode_attention_ref(q, k, v, length, window, cap, kv0=kv0, **extra)
+                err = float((out - ref).abs().max())
+                check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
+                      f"decode_attention {tag}: err {err}")
+                check(torch.equal(out, whole[:, kv0:kv0 + kvl]),
+                      f"decode_attention {tag}: differs from the whole-cache launch's heads")
+                max_err = max(max_err, err)
+                # every head outside the slice poisoned: the slice is all it reads
+                kn, vn = k.clone(), v.clone()
+                other = [h for h in range(kvc) if not kv0 <= h < kv0 + kvl]
+                poison = dict(extra)
+                if name == "int8":
+                    poison["k_scale"], poison["v_scale"] = ks.clone(), vs.clone()
+                    for t in (poison["k_scale"], poison["v_scale"]):
+                        t[:, other] = float("nan")
+                else:
+                    for t in (kn, vn):
+                        t[:, other] = float("nan")
+                again = decode_attention_cuda(q, kn, vn, length, window, cap, kv0=kv0, **poison)
+                torch.cuda.synchronize()
+                check(torch.equal(again, out), f"decode_attention {tag} read another head")
+                del kn, vn, poison
+                if kv0 == 0:
+                    continue
+                sl = slice(kv0, kv0 + kvl)
+                fns = {"kernel": lambda: decode_attention_cuda(q, k, v, length, window, cap,
+                                                               kv0=kv0, **extra),
+                       "whole": lambda: decode_attention_cuda(q_all, k, v, length, window, cap,
+                                                              **extra),
+                       "plain": lambda: decode_attention_ref(q, k, v, length, window, cap,
+                                                             kv0=kv0, **extra)}
+                if cap == 0 and name == "bf16":
+                    fns["library"] = lambda: sdpa_window_call(q, k[:, sl], v[:, sl], length,
+                                                              window)
+                elif cap == 0:
+                    fns["library"] = lambda: dequant_sdpa_call(
+                        q, k[:, sl], v[:, sl], ks[:, sl], vs[:, sl], length, window,
+                        torch.bfloat16)
+                wall = {n: cuda_ms(f, 20 if n in ("kernel", "whole") else 10)
+                        for n, f in fns.items()}
+                on_card = {n: device_ms(fns[n], 10, expect=1) for n in ("kernel", "whole")}
+                check(all(d[1] == 1 for d in on_card.values()),
+                      f"decode_attention {tag}: not one CUDA kernel a call: {on_card}")
+                bound, by = decode_bound(live, s, kvl, gq, dh, elem, scale_bytes)
+                whole_bound, _ = decode_bound(live, s, kvc, gq, dh, elem, scale_bytes)
+                lib = wall.get("library")
+                rows[(name, cap)] = dict(
+                    ms=wall["kernel"], device_ms=on_card["kernel"][0], whole_ms=wall["whole"],
+                    whole_device_ms=on_card["whole"][0], plain_ms=wall["plain"],
+                    library_ms=lib, bound_ms=bound, bound_by=by, whole_bound_ms=whole_bound,
+                    max_abs_err=err, positions=sum(live))
+                print(f"[decode-split] {tag}, lengths {lengths}: kernel {wall['kernel']:.4f} ms "
+                      f"(device {on_card['kernel'][0]:.4f}) over the rank's heads, whole-cache "
+                      f"launch {wall['whole']:.4f} ({on_card['whole'][0]:.4f}), plain "
+                      f"{wall['plain']:.4f}, library "
+                      + (f"{lib:.4f}" if lib is not None else "none (no PyTorch call applies "
+                         "a softcap)")
+                      + f"; bound of the rank's bytes {bound:.6g} ms ({by}; the whole cache's "
+                      f"{whole_bound:.6g}); device / bound {on_card['kernel'][0] / bound:.3f}; "
+                      f"max_abs_err {err:.3g}", flush=True)
+    del caches, k8, v8, ks, vs, q_all
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"[decode-split] kv0 0 and {kvc - kvl} of {kvc} heads, bf16 and int8, softcap 0 and "
+          f"50: within rtol=atol=2e-4 of the plain version (max_abs_err {max_err:.3g}), bitwise "
+          f"the whole-cache launch's heads, no other head read; split rows took {secs:.1f} s",
+          flush=True)
+    return {"rows": rows, "max_abs_err": max_err, "seconds": secs}
+
+
 # ----------------------------------------------------------------------
 # phases 6, 6b, 6c: LM serving at full width and depth
 # ----------------------------------------------------------------------
@@ -4003,13 +4150,187 @@ def _tp_hold(rank: int, state, axis, ref: dict) -> dict:
     return {"worst": worst, "sums": sums, "compared": n, "far": far}
 
 
+# phase 13b: gemma2-2b served over the model axis by phase 13's two ranks
+# 2 requests and 8 new tokens: cut from 4 and 16 when the script took 1,087.1 s
+TPS_REQUESTS, TPS_NEW, TPS_MAX_LEN = 2, 8, 1040
+TPS_SEED = 13             # the weights' and the prompts' seed
+TPS_SAMPLES = 4096        # cache elements of k and of v held one by one
+TPS_LOGIT_REL = 1e-4      # each step's logits: within this x the step's max |logit|
+TPS_CACHE_REL = 1e-5      # sampled cache elements: within this x max(1, max |sample|)
+
+
+def tps_config():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(GEMMA), dtype="float32")
+
+
+def tps_prompts(cfg) -> list:
+    """TPS_REQUESTS prompts of 256-1,024 tokens (both ends first)."""
+    import numpy as np
+
+    rng = np.random.default_rng(TPS_SEED)
+    lens = [1024, 256] + [int(n) for n in rng.integers(257, 1024, TPS_REQUESTS - 2)]
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+
+def tps_model(cfg, axis_group=None):
+    """gemma2-2b at full width and depth in fp32, its weights drawn from
+    TPS_SEED on the card; cut to this rank's blocks over ``axis_group``."""
+    import torch
+
+    from repro_torch.dist.tensor_parallel import shard_model
+    from repro_torch.models import Model
+
+    model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(TPS_SEED))
+    if axis_group is not None:
+        shard_model(model, axis_group)
+    return model
+
+
+def tps_serve(model, prompts) -> dict:
+    """``prompts`` through ServeEngine in one batch, TPS_NEW new tokens
+    each: the tokens, every step's logits (on the host) and wall (host
+    clock around a synchronised call), the kernels' launches over the run,
+    TPS_SAMPLES seeded elements of the final cache's k and v, and the
+    kernel against its plain version on that cache (layer 0, windowed,
+    and layer 1, global) over the heads this process's attention reads."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(model, batch_slots=TPS_REQUESTS, max_len=TPS_MAX_LEN)
+    rec = {"logits": [], "walls": []}
+    prefill, decode = eng._prefill, eng._decode
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = fn(*args)
+        torch.cuda.synchronize()
+        rec["walls"].append((time.perf_counter() - t0) * 1e3)
+        rec["logits"].append(logits.cpu().numpy())
+        rec["cache"] = cache
+        return logits, cache
+
+    eng._prefill = lambda batch, lens: timed(prefill, batch, lens)
+    eng._decode = lambda cache, tok, lens: timed(decode, cache, tok, lens)
+    ops.reset_kernel_launches()
+    tokens = eng.run([Request(uid=i, prompt=p, max_new_tokens=TPS_NEW)
+                      for i, p in enumerate(prompts)])
+    launches = ops.kernel_launches()
+    cache = rec.pop("cache")
+    rng = np.random.default_rng(TPS_SEED)
+    samples = {}
+    for name in ("k", "v"):
+        idx = torch.as_tensor(rng.integers(0, cache[name].numel(), TPS_SAMPLES), device="cuda")
+        samples[name] = cache[name].reshape(-1)[idx].cpu().numpy()
+    cfg = model.cfg
+    axis = model.model_axis
+    kv0, kvl = axis.kv_heads if axis is not None else (0, cfg.n_kv_heads)
+    b = len(prompts)
+    fill = torch.tensor([len(p) + TPS_NEW - 1 for p in prompts], dtype=torch.int32,
+                        device="cuda")
+    q = torch.randn((b, kvl, cfg.n_heads // cfg.n_kv_heads, cfg.dh),
+                    generator=torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    err = 0.0
+    for i in (0, 1):
+        args = (q, cache["k"][i], cache["v"][i], fill, model.windows[i], cfg.attn_softcap)
+        out = decode_attention_cuda(*args, kv0=kv0)
+        torch.cuda.synchronize()
+        ref = decode_attention_ref(*args, kv0=kv0)
+        e = float((out - ref).abs().max())
+        check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL),
+              f"[tp-serve] the kernel over heads {kv0}..{kv0 + kvl - 1} of layer {i}'s cache: "
+              f"err {e}")
+        err = max(err, e)
+    return {"tokens": tokens, **rec, "launches": launches, "samples": samples, "cache_err": err,
+            "kv_heads": (kv0, kvl)}
+
+
+def tps_reference(cfg) -> dict:
+    """Phase 13b's baseline in this process: the whole model (the ranks'
+    weights) serving the same prompts."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = tps_model(cfg)
+    build_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    out = tps_serve(model, tps_prompts(cfg))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["build_gb"] = build_gb
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tps_hold(got: dict, want: dict) -> dict:
+    """A rank's serving against the one-process baseline: the largest gap
+    of each step's logits over the step's max |logit|, whether the tokens
+    are equal, the largest gap of the sampled cache elements over max(1,
+    the samples' max |value|)."""
+    import numpy as np
+
+    logit_rel = max(float(np.abs(g - w).max()) / float(np.abs(w).max())
+                    for g, w in zip(got["logits"], want["logits"]))
+    cache_rel = max(float(np.abs(got["samples"][n] - want["samples"][n]).max())
+                    / max(1.0, float(np.abs(want["samples"][n]).max())) for n in ("k", "v"))
+    return {"logit_rel": logit_rel, "cache_rel": cache_rel,
+            "steps": (len(got["logits"]), len(want["logits"])),
+            "tokens_equal": got["tokens"] == want["tokens"]}
+
+
+def tps_rank(rank: int, mesh, sref: dict) -> dict:
+    """Phase 13b on one rank: the model built whole from TPS_SEED (one rank
+    at a time, so that one whole model exists on the card at once) and cut
+    to this rank's blocks, then served and held to the baseline."""
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.time()
+    cfg = tps_config()
+    torch.cuda.reset_peak_memory_stats()
+    for turn in range(2):
+        if turn == rank:
+            model = tps_model(cfg, mesh["model"].get_group())
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    t_built = time.time()
+    build_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    got = tps_serve(model, tps_prompts(cfg))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t_served = time.time()
+    out = {**tps_hold(got, sref), "walls": got["walls"], "launches": got["launches"],
+           "cache_err": got["cache_err"], "kv_heads": got["kv_heads"], "peak_gb": peak,
+           "build_gb": build_gb,
+           "split": model.model_axis.split,
+           "times": {"start": t0, "built": t_built, "served": t_served, "held": time.time()}}
+    del model, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_worker(rank: int, port: int, inbox, outbox) -> None:
     """One of phase 13's two ranks, on cuda:0: a gloo group over
     tcp://localhost, ``make_custom_mesh(1, 2, "cuda")``; it waits for the
-    one-process run's samples (``inbox``), then builds its state (one rank
-    at a time, so that only one whole state exists on the card at once),
-    trains TP_STEPS steps and holds its blocks to the samples; its results
-    (or its traceback) go to ``outbox``."""
+    one-process runs' results (``inbox``: phase 13's samples, phase 13b's
+    baseline), then builds its state (one rank at a time, so that only one
+    whole state exists on the card at once), trains TP_STEPS steps and
+    holds its blocks to the samples; then frees it and serves phase 13b
+    (``tps_rank``).  Its results go to ``outbox`` as (rank, phase, result),
+    or its traceback in place of the result."""
     import datetime
     import traceback
 
@@ -4038,7 +4359,7 @@ def tp_worker(rank: int, port: int, inbox, outbox) -> None:
 
         torch.zeros(1, device="cuda")
         t_ready = time.time()
-        ref = inbox.get(timeout=TP_TIMEOUT)
+        ref, sref = inbox.get(timeout=TP_TIMEOUT)
         t_go = time.time()
         cfg = tp_config()
         pipe = tp_pipe(cfg)
@@ -4068,16 +4389,21 @@ def tp_worker(rank: int, port: int, inbox, outbox) -> None:
         peak = torch.cuda.max_memory_allocated() / 1e9
         t_trained = time.time()
         held = _tp_hold(rank, state, model.model_axis, ref)
-        outbox.put((rank, {
+        outbox.put((rank, "13", {
             "losses": losses, "grad_norms": gnorms, "walls": walls, "allocated": allocated,
             "peak_gb": peak, "launches": launches, "sharded": sorted(model.model_axis.dims),
             "split": model.model_axis.split, **held,
             "times": {"start": t_start, "ready": t_ready, "go": t_go, "built": t_built,
                       "trained": t_trained, "held": time.time()}}))
+        del model, state, step, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        outbox.put((rank, "13b", tps_rank(rank, mesh, sref)))
         dist.barrier()
         dist.destroy_process_group()
     except Exception:
-        outbox.put((rank, traceback.format_exc()))
+        outbox.put((rank, None, traceback.format_exc()))
 
 
 def tp_phase() -> dict:
@@ -4119,17 +4445,22 @@ def tp_phase() -> dict:
     for p in procs:
         p.start()
     try:
-        # while the ranks start: the dry-run's prediction, then the one-process run
+        # while the ranks start: the dry-run's prediction, then the one-process
+        # runs (phase 13's training, phase 13b's serving)
         predicted = dryrun.train_state_bytes(cfg, (1, 2))
         ref = tp_reference(cfg)
         t_ref = time.time()
+        sref = tps_reference(tps_config())
+        t_sref = time.time()
         for box in inboxes:
-            box.put(ref)
-        got = {}
-        while len(got) < 2:
-            rank, res = outbox.get(timeout=TP_TIMEOUT)
+            box.put((ref, sref))
+        got, served = {}, {}
+        while len(got) < 2 or len(served) < 2:
+            rank, phase, res = outbox.get(timeout=TP_TIMEOUT)
             check(not isinstance(res, str), f"[tp] rank {rank} failed:\n{res}")
-            got[rank] = res
+            (got if phase == "13" else served)[rank] = res
+            if phase == "13" and len(got) == 2:
+                t_trained = time.perf_counter()
         for p in procs:
             p.join(timeout=60)
             check(p.exitcode == 0, f"[tp] a rank exited with {p.exitcode}")
@@ -4181,7 +4512,7 @@ def tp_phase() -> dict:
     t0 = min(got[r]["times"]["start"] for r in (0, 1))
     stamps = {k: max(got[r]["times"][k] for r in (0, 1)) - t_spawn
               for k in ("start", "ready", "go", "built", "trained", "held")}
-    secs = time.perf_counter() - t_phase
+    secs = t_trained - t_phase
     print(f"[tp] gemma2-2b full width, {cfg.n_layers} of 26 layers, fp32 compute (TF32 off), "
           f"TokenPipeline(vocab {cfg.vocab_size}, seq {TP_SEQ}, batch {TP_BATCH}, seed 0), "
           f"{TP_STEPS} AdamW steps at lr {TP_LR} constant: one process losses {ref['losses']} "
@@ -4207,11 +4538,77 @@ def tp_phase() -> dict:
           f"{card_line()}; seconds from the spawn: ranks started {stamps['start']:.1f}, ready "
           f"{stamps['ready']:.1f}, one-process run done {t_ref - t_spawn:.1f}, states built "
           f"{stamps['built']:.1f}, trained {stamps['trained']:.1f}, held {stamps['held']:.1f} "
-          f"(first rank up {t0 - t_spawn:.1f}); phase 13 took {secs:.1f} s", flush=True)
+          f"(first rank up {t0 - t_spawn:.1f}; phase 13b's baseline served in this process "
+          f"{t_ref - t_spawn:.1f}-{t_sref - t_spawn:.1f}); phase 13 took {secs:.1f} s", flush=True)
+    serve = tps_gates(sref, served, time.perf_counter() - t_trained, t_sref - t_ref)
     return {"ref": {k: ref[k] for k in ("losses", "grad_norms", "walls", "peak_gb")},
             "far_share": far_share, "idle_far_share": idle_far_share, "idle_ratio": idle_ratio,
             "ranks": {r: {k: v for k, v in res.items() if k != "sums"} for r, res in got.items()},
-            "predicted": predicted, "tp_ms": tp_ms, "one_ms": one_ms, "seconds": secs}
+            "predicted": predicted, "tp_ms": tp_ms, "one_ms": one_ms, "seconds": secs,
+            "serve": serve, "both_seconds": time.perf_counter() - t_phase}
+
+
+def tps_gates(sref: dict, served: dict, rank_secs: float, base_secs: float) -> dict:
+    """Phase 13b's gates on the ranks' reports against the one-process
+    baseline ``sref``: each rank's logits at every step within
+    TPS_LOGIT_REL of the step's max |logit|, its greedy tokens equal, its
+    sampled cache within TPS_CACHE_REL; 26 decode_attention launches a
+    decode step on each rank and in the baseline, no masked_l2_topk; the
+    kernel equal to its plain version on each one's cache."""
+    import numpy as np
+
+    cfg = tps_config()
+    steps = len(sref["walls"]) - 1
+    want = {"masked_l2_topk": 0, "decode_attention": cfg.n_layers * steps}
+    check(steps == TPS_NEW - 1 and sref["launches"] == want,
+          f"[tp-serve] the baseline: {steps} decode steps, launches {sref['launches']}")
+    for r, res in sorted(served.items()):
+        check(res["steps"] == (steps + 1, steps + 1),
+              f"[tp-serve] rank {r} served {res['steps'][0]} steps, the baseline {steps + 1}")
+        check(res["tokens_equal"], f"[tp-serve] rank {r}'s greedy tokens differ from the "
+                                   "one-process run's")
+        check(res["logit_rel"] <= TPS_LOGIT_REL,
+              f"[tp-serve] rank {r}'s logits {res['logit_rel']:.3e} of the max |logit| off")
+        check(res["cache_rel"] <= TPS_CACHE_REL,
+              f"[tp-serve] rank {r}'s sampled cache {res['cache_rel']:.3e} off")
+        check(res["launches"] == want, f"[tp-serve] rank {r}'s launches {res['launches']}, "
+                                       f"not {want}")
+    one_pre, one_dec = sref["walls"][0], float(np.median(sref["walls"][1:]))
+    tp_pre = [served[r]["walls"][0] for r in (0, 1)]
+    tp_dec = [float(np.median(served[r]["walls"][1:])) for r in (0, 1)]
+    secs = rank_secs + base_secs
+    print(f"[tp-serve] gemma2-2b full width and all {cfg.n_layers} layers, fp32 (TF32 off), "
+          f"{TPS_REQUESTS} requests of {sorted(len(p) for p in tps_prompts(cfg))} tokens, "
+          f"{TPS_NEW} new, max_len {TPS_MAX_LEN}, ServeEngine in one batch; two ranks on cuda:0 "
+          f"over the (1, 2) mesh (gloo), units split {served[0]['split']}, KV heads "
+          f"{served[0]['kv_heads']} and {served[1]['kv_heads']} (start, count) of "
+          f"{cfg.n_kv_heads}: logits {max(served[r]['logit_rel'] for r in (0, 1)):.3e} of the "
+          f"max |logit| off the one-process run's (gate {TPS_LOGIT_REL}), greedy tokens equal, "
+          f"sampled cache {max(served[r]['cache_rel'] for r in (0, 1)):.3e} off (gate "
+          f"{TPS_CACHE_REL}); decode_attention launches {served[0]['launches']['decode_attention']}"
+          f" and {served[1]['launches']['decode_attention']} a rank, "
+          f"{sref['launches']['decode_attention']} in one process ({cfg.n_layers} x {steps} "
+          f"steps), masked_l2_topk 0; kernel vs plain on each one's cache max_abs_err "
+          f"{max(sref['cache_err'], *(served[r]['cache_err'] for r in (0, 1))):.3g}", flush=True)
+    print(f"[tp-serve] prefill ms: one process {one_pre:.1f}, two ranks {tp_pre[0]:.1f} and "
+          f"{tp_pre[1]:.1f}; decode ms a step (median of {steps}): one process {one_dec:.2f}, "
+          f"two ranks {tp_dec[0]:.2f} and {tp_dec[1]:.2f} -- gloo through the host, not tensor "
+          f"parallelism over NVLink; peak GB serving: one process {sref['peak_gb']:.2f}, a rank "
+          f"{served[0]['peak_gb']:.2f} and {served[1]['peak_gb']:.2f} (building: "
+          f"{sref['build_gb']:.2f}, {served[0]['build_gb']:.2f} and "
+          f"{served[1]['build_gb']:.2f}: the whole model and init's fp32 draw of its largest "
+          f"weight); {card_line()}; phase 13b "
+          f"took {secs:.1f} s ({base_secs:.1f} s of baseline in this process while the ranks "
+          f"started, {rank_secs:.1f} s on the ranks after phase 13)", flush=True)
+    return {"launches": sref["launches"], "cache_err": max(
+                sref["cache_err"], *(served[r]["cache_err"] for r in (0, 1))),
+            "rank_launches": [served[r]["launches"]["decode_attention"] for r in (0, 1)],
+            "one_prefill_ms": one_pre, "one_decode_ms": one_dec, "tp_prefill_ms": tp_pre,
+            "tp_decode_ms": tp_dec, "peak_gb": [served[r]["peak_gb"] for r in (0, 1)],
+            "one_peak_gb": sref["peak_gb"], "seconds": secs,
+            "build_gb": [sref["build_gb"]] + [served[r]["build_gb"] for r in (0, 1)],
+            "logit_rel": max(served[r]["logit_rel"] for r in (0, 1)),
+            "cache_rel": max(served[r]["cache_rel"] for r in (0, 1))}
 
 
 def main(argv=None) -> int:
@@ -4245,6 +4642,7 @@ def main(argv=None) -> int:
     wc = decode_window_checks()
     i8 = decode_int8_checks()
     fc = decode_frontend_checks()
+    sc = decode_split_checks()
     mp = main_path(args.rows, args.train, args.serve, args.batch)
     real_row_independence(mp)
     dnf = dnf_phase(mp)
@@ -4313,7 +4711,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tp = tp_phase()
-    print(f"[smoke] phase 13 (tensor-parallel training) took {tp['seconds']:.1f} s", flush=True)
+    served["13b"] = tp["serve"]
+    print(f"[smoke] phases 13 and 13b (tensor-parallel training and serving) took "
+          f"{tp['both_seconds']:.1f} s (13 {tp['seconds']:.1f}, 13b {tp['serve']['seconds']:.1f})",
+          flush=True)
     print(f"[smoke] phase 10 (training) took {tr['seconds']:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -4342,11 +4743,14 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:29",
-        "launches": sum(p["launches"]["decode_attention"] for p in served.values()),
+        "launches": (sum(p["launches"]["decode_attention"] for p in served.values())
+                     + sum(tp["serve"]["rank_launches"])),
         "launches_by_phase": {k: p["launches"]["decode_attention"] for k, p in served.items()},
+        "launches_13b_ranks": tp["serve"]["rank_launches"],
         "train_launches": tr["launches"]["decode_attention"],
         "max_abs_err": max(dc["max_abs_err"], wc["max_abs_err"], i8["max_abs_err"],
-                           fc["max_abs_err"], *(p["cache_err"] for p in served.values())),
+                           fc["max_abs_err"], sc["max_abs_err"],
+                           *(p["cache_err"] for p in served.values())),
         "ms": dhead["ms"], "plain_ms": dhead["plain_ms"], "bound_ms": dhead["bound_ms"],
         "bound_by": dhead["bound_by"], "library_ms": dhead["library_ms"],
         "device_ms": dhead["device_ms"], "plain_device_ms": dhead["plain_device_ms"],
@@ -4383,6 +4787,10 @@ def main(argv=None) -> int:
         "frontend_self": {t: {k: fc["rows"][t][k] for k in ("ms", "device_ms", "plain_ms",
                                                              "library_ms", "bound_ms", "shape")}
                           for t in ("seamless-self", "internvl2-self")},
+        "split": {f"{name}_softcap{cap:g}": row for (name, cap), row in sc["rows"].items()},
+        "split_shape": dict(zip(("B", "KV_cache", "KV", "GQ", "S", "dh", "window"), SPLIT_SHAPE),
+                            kv0=SPLIT_SHAPE[1] - SPLIT_SHAPE[2],
+                            positions=sc["rows"][("bf16", 0.0)]["positions"]),
         "check": "ok",
     }]
     print(json.dumps({"kernels": kernels}))

@@ -21,7 +21,16 @@ parallelism without sequence parallelism does:
   by :func:`gather_model`, and its unit runs replicated;
 * the residual stream between units is replicated over the model axis.
 
-Each of the three operations sends one ``all_reduce`` (a sum) over the
+Serving (``Model.prefill``, ``Model.decode_step``, ``ServeEngine``) runs
+on the same cut: the KV cache stays whole on every rank, replicated over
+the model axis as the reference's ``cache_sharding`` places it.  Where
+attention runs split, each rank computes the K/V of its own KV groups,
+:func:`gather_model` makes them whole (K and V stacked: one all-reduce of
+the zero-padded blocks), every rank writes every head, so the cache stays
+a true replica, and the decode kernel reads the rank's heads
+``ModelAxis.kv_heads`` of it in place.
+
+Each of the operations sends one ``all_reduce`` (a sum) over the
 model group and nothing else, so the same code runs over NCCL across
 cards and over gloo, which carries only ``all_reduce`` and ``broadcast``
 for CUDA tensors: several CPU processes, or several processes sharing one
@@ -167,9 +176,9 @@ class ModelAxis:
     """One rank's view of a model axis of ``n`` ranks (``group``, this
     process at ``rank`` in it) for ``cfg``: which units split
     (``split``), the attention's config over this rank's heads
-    (``attn_cfg``), the vocab rows it holds (``vocab0``, ``vocab_rows``),
-    and for each weight the dim the axis cuts (``dims``; absent where it
-    is replicated)."""
+    (``attn_cfg``) and the cache heads they are (``kv_heads``), the vocab
+    rows it holds (``vocab0``, ``vocab_rows``), and for each weight the dim
+    the axis cuts (``dims``; absent where it is replicated)."""
 
     def __init__(self, cfg: ModelConfig, group, n: int, rank: int):
         self.cfg, self.group, self.n, self.rank = cfg, group, n, rank
@@ -180,6 +189,14 @@ class ModelAxis:
         self.vocab_rows = cfg.vocab_size // n
         self.vocab0 = rank * self.vocab_rows
         self.dims: Dict[str, int] = {}
+
+    @property
+    def kv_heads(self) -> Tuple[int, int]:
+        """(kv0, KV_local): the KV heads of the whole cache this rank's
+        attention reads: its own KV groups where attention runs split, else
+        every head."""
+        kvl = self.attn_cfg.n_kv_heads
+        return (self.rank * kvl if self.split["attn"] else 0), kvl
 
     def use(self, name: str, shape) -> Tuple[str, Optional[int]]:
         """How this rank's compute uses the weight ``name`` of whole

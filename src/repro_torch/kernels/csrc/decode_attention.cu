@@ -103,6 +103,14 @@
 //     the sub-tile's bulk copies and awaited with `cp.async.wait_group`: a
 //     window's first position need not be a multiple of 4, so the scales'
 //     start is not 16-byte aligned for a bulk copy.
+//   * One rank's KV heads of a cache it holds whole: tensor-parallel serving
+//     keeps the reference's cache placement (replicated over the model axis)
+//     and attends over the rank's KV groups only.  q and out are the rank's
+//     (B, KV, gq, dh), and K/V (and the int8 scales) are addressed as heads
+//     kv0 + kvh of the (B, KVC, S, dh) cache, in place: a head's positions are
+//     one contiguous run whatever kv0, so no slice is copied and each rank
+//     reads only its heads' bytes.  kv0 = 0 with KVC = KV is the whole-cache
+//     launch, unchanged.
 // Within a warp, a K/V row is read as 16-byte pieces by LPR lanes, the GQ
 // queries sit in registers and one K/V element serves every head of the group.
 #include <cuda_bf16.h>
@@ -275,15 +283,16 @@ __device__ __forceinline__ void widen(const int8_t* p, float* out, float scale, 
 // Workspace: part_m, part_l (B, KV, n_chunks, gq) and part_acc
 // (B, KV, n_chunks, gq, DH) f32, one after the other in `part`; counters
 // (B, KV) int32, zero between calls.
-// int8 K/V also take k_scale/v_scale (B, KV, S) f32 and `to_bf16`; the
-// others pass null scales.
+// K/V are (B, KVC, S, dh) and the block reads cache head kv0 + kvh.  int8
+// K/V also take k_scale/v_scale (B, KVC, S) f32 and `to_bf16`; the others
+// pass null scales.
 template <typename T, int DH, int GQM, bool PAD>
 __global__ void __launch_bounds__(THREADS, min_blocks(GQM))
 decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const float* __restrict__ k_scale,
                         const float* __restrict__ v_scale, const int* __restrict__ lengths,
-                        int B, int KV, int S, int gq, int chunk, int n_chunks, int window,
-                        float softcap, bool to_bf16, int n_stages,
+                        int B, int KV, int KVC, int kv0, int S, int gq, int chunk, int n_chunks,
+                        int window, float softcap, bool to_bf16, int n_stages,
                         float* __restrict__ part, int* __restrict__ counters,
                         float* __restrict__ out) {
   constexpr int ELEM = sizeof(T);
@@ -309,7 +318,8 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int len = min(lengths[b], S);
-  const size_t bk = (size_t)b * KV + kvh;
+  const size_t bk = (size_t)b * KV + kvh;             // q, out, partials, counters
+  const size_t bc = (size_t)b * KVC + kv0 + kvh;      // the cache's (row, head)
   const int ng = PAD ? gq : GQM;                      // live heads
   float* outb = out + bk * ng * DH;
   if (len <= 0) {                                     // nothing to attend to
@@ -338,8 +348,8 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const int s_lo = skip / R;                          // the first live sub-tile
   const int n_live = (n + R - 1) / R - s_lo;          // live sub-tiles in the chunk
   const int mine = n_live > warp ? (n_live - 1 - warp) / WARPS + 1 : 0;
-  const T* kb = k + (bk * S + start) * DH;
-  const T* vb = v + (bk * S + start) * DH;
+  const T* kb = k + (bc * S + start) * DH;
+  const T* vb = v + (bc * S + start) * DH;
 
   // copy this warp's i-th sub-tile (chunk sub-tile s_lo + warp + i * WARPS)
   // into stage i % n_stages, K in the first half, V in the second, from the
@@ -360,7 +370,7 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ k,
       bulk_load(dst + STAGE / 2, vb + (size_t)(r0 + first) * DH, bytes, bar);
     }
     if constexpr (I8) {
-      const size_t p0 = bk * S + start + r0;
+      const size_t p0 = bc * S + start + r0;
       for (int r = lane; r < R; r += 32) {
         if (r >= first && r < rows) {
           cp_async4(smem_u32(&sc_s[warp][stage][0][r]), k_scale + p0 + r);
@@ -698,7 +708,7 @@ struct Args {
   const float* k_scale;
   const float* v_scale;
   const int* lengths;
-  int B, KV, S, gq, chunk, n_chunks, window;
+  int B, KV, KVC, kv0, S, gq, chunk, n_chunks, window;
   float softcap;
   bool to_bf16;
   float* part;
@@ -727,8 +737,8 @@ int launch(const float* q, const T* k, const T* v, const Args& a) {
     allowed = smem;
   }
   kernel<<<dim3(a.n_chunks, a.KV, a.B), THREADS, smem, a.stream>>>(
-      q, k, v, a.k_scale, a.v_scale, a.lengths, a.B, a.KV, a.S, a.gq, a.chunk, a.n_chunks,
-      a.window, a.softcap, a.to_bf16, n_stages, a.part, a.counters, a.out);
+      q, k, v, a.k_scale, a.v_scale, a.lengths, a.B, a.KV, a.KVC, a.kv0, a.S, a.gq, a.chunk,
+      a.n_chunks, a.window, a.softcap, a.to_bf16, n_stages, a.part, a.counters, a.out);
   return (int)cudaGetLastError();
 }
 
@@ -749,7 +759,8 @@ int launch_gq(const float* q, const T* k, const T* v, const Args& a) {
 
 template <typename T>
 int decode_attention(const float* q, const T* k, const T* v, int dh, const Args& a) {
-  if (a.B < 1 || a.B > 65535 || a.KV < 1 || a.KV > 65535 || a.S < 1 || a.gq < 1 || a.gq > 16 ||
+  if (a.B < 1 || a.B > 65535 || a.KV < 1 || a.KV > 65535 || a.kv0 < 0 || a.KVC < a.kv0 + a.KV ||
+      a.S < 1 || a.gq < 1 || a.gq > 16 ||
       a.window < 1 || !(a.softcap >= 0.f && a.softcap <= 3.4e38f) ||
       (dh != 32 && dh != 64 && dh != 128 && dh != 256) ||
       a.chunk != chunk_positions(a.S, dh, tile_elem<T>()) ||
@@ -768,45 +779,48 @@ int decode_attention(const float* q, const T* k, const T* v, int dh, const Args&
 
 }  // namespace
 
-// q (B, KV, gq, dh) f32; k/v (B, KV, S, dh), 16-byte aligned; lengths (B,)
-// i32; chunk = chunk_positions(S, dh, sizeof(elem)) and n_chunks =
-// ceil(S / chunk); window >= 1 (S or more = full attention); softcap >= 0
-// (0 = none); part: 2 * ceil4(B*KV*n_chunks*gq) + B*KV*n_chunks*gq*dh f32;
-// counters (B, KV) i32, zero on entry and left zero; out (B, KV, gq, dh) f32.
-// All contiguous on one device.  Launches one kernel on `stream` without
-// synchronising; returns cudaGetLastError().
+// q (B, KV, gq, dh) f32: the KV heads kv0 .. kv0 + KV - 1 of k/v (B, KVC, S,
+// dh), 16-byte aligned, read in place (kv0 = 0 and KVC = KV: the whole
+// cache); lengths (B,) i32; chunk = chunk_positions(S, dh, sizeof(elem)) and
+// n_chunks = ceil(S / chunk); window >= 1 (S or more = full attention);
+// softcap >= 0 (0 = none); part: 2 * ceil4(B*KV*n_chunks*gq) +
+// B*KV*n_chunks*gq*dh f32; counters (B, KV) i32, zero on entry and left zero;
+// out (B, KV, gq, dh) f32.  All contiguous on one device.  Launches one kernel
+// on `stream` without synchronising; returns cudaGetLastError().
 #ifndef DECODE_ATTENTION_INT8
 extern "C" int decode_attention_f32(const float* q, const float* k, const float* v,
-                                    const int* lengths, int B, int KV, int S, int gq, int dh,
-                                    int chunk, int n_chunks, int window, float softcap,
-                                    float* part, int* counters, float* out, void* stream) {
-  const Args a{nullptr, nullptr, lengths, B, KV, S, gq, chunk, n_chunks, window, softcap,
-               false, part, counters, out, static_cast<cudaStream_t>(stream)};
+                                    const int* lengths, int B, int KV, int KVC, int kv0,
+                                    int S, int gq, int dh, int chunk, int n_chunks, int window,
+                                    float softcap, float* part, int* counters, float* out,
+                                    void* stream) {
+  const Args a{nullptr, nullptr, lengths, B, KV, KVC, kv0, S, gq, chunk, n_chunks, window,
+               softcap, false, part, counters, out, static_cast<cudaStream_t>(stream)};
   return decode_attention<float>(q, k, v, dh, a);
 }
 
 extern "C" int decode_attention_bf16(const float* q, const void* k, const void* v,
-                                     const int* lengths, int B, int KV, int S, int gq, int dh,
-                                     int chunk, int n_chunks, int window, float softcap,
-                                     float* part, int* counters, float* out, void* stream) {
-  const Args a{nullptr, nullptr, lengths, B, KV, S, gq, chunk, n_chunks, window, softcap,
-               false, part, counters, out, static_cast<cudaStream_t>(stream)};
+                                     const int* lengths, int B, int KV, int KVC, int kv0,
+                                     int S, int gq, int dh, int chunk, int n_chunks, int window,
+                                     float softcap, float* part, int* counters, float* out,
+                                     void* stream) {
+  const Args a{nullptr, nullptr, lengths, B, KV, KVC, kv0, S, gq, chunk, n_chunks, window,
+               softcap, false, part, counters, out, static_cast<cudaStream_t>(stream)};
   return decode_attention<__nv_bfloat16>(q, static_cast<const __nv_bfloat16*>(k),
                                          static_cast<const __nv_bfloat16*>(v), dh, a);
 }
 
 #else
-// int8 k/v (B, KV, S, dh) with f32 k_scale/v_scale (B, KV, S); chunk =
+// int8 k/v (B, KVC, S, dh) with f32 k_scale/v_scale (B, KVC, S); chunk =
 // chunk_positions(S, dh, 2), bf16's; to_bf16 != 0 rounds each dequantized
 // value to bf16 (a bf16 model), 0 keeps it fp32.  Otherwise as above.
 extern "C" int decode_attention_int8(const float* q, const void* k, const void* v,
                                      const float* k_scale, const float* v_scale,
-                                     const int* lengths, int B, int KV, int S, int gq, int dh,
-                                     int chunk, int n_chunks, int window, float softcap,
-                                     int to_bf16, float* part, int* counters, float* out,
-                                     void* stream) {
-  const Args a{k_scale, v_scale, lengths, B, KV, S, gq, chunk, n_chunks, window, softcap,
-               to_bf16 != 0, part, counters, out, static_cast<cudaStream_t>(stream)};
+                                     const int* lengths, int B, int KV, int KVC, int kv0,
+                                     int S, int gq, int dh, int chunk, int n_chunks, int window,
+                                     float softcap, int to_bf16, float* part, int* counters,
+                                     float* out, void* stream) {
+  const Args a{k_scale, v_scale, lengths, B, KV, KVC, kv0, S, gq, chunk, n_chunks, window,
+               softcap, to_bf16 != 0, part, counters, out, static_cast<cudaStream_t>(stream)};
   return decode_attention<int8_t>(q, static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
                                   dh, a);
 }

@@ -46,7 +46,14 @@ cost.  One launch per call:
   cache is written, so a position costs dh + 4 bytes of K and of V.  It
   tiles as bf16 does (``TILE_ELEM``), and its scales arrive by 4-byte
   copies, since a window's first position need not leave them 16-byte
-  aligned.
+  aligned;
+* one rank's KV heads of a cache it holds whole (tensor-parallel serving
+  keeps the cache replicated over the model axis): ``kv0`` and the cache's
+  own head count are launch arguments, q and ``out`` are the rank's (B,
+  KV_local, GQ, dh), and the blocks address K/V and the scales as heads
+  ``kv0 + h`` of the cache in place (no per-step copy of the slice, which
+  is not contiguous at B > 1).  ``kv0 = 0`` over the whole cache is the
+  launch it always was.
 
 :func:`decode_attention_dispatch` is the one entry: tensors on the CPU take
 the plain PyTorch version (:func:`repro_torch.kernels.ref.decode_attention_ref`);
@@ -157,14 +164,13 @@ def workspace(device: torch.device, stream: int, b: int, kv: int, gq: int, dh: i
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.decode_attention_f32, lib.decode_attention_bf16):
-        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, f32,
-                       vp, vp, vp, vp]
+        fn.argtypes = [vp, vp, vp, vp] + [i32] * 10 + [f32, vp, vp, vp, vp]
         fn.restype = i32
 
 
 def _bind_int8(lib: ctypes.CDLL) -> None:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.decode_attention_int8.argtypes = [vp] * 6 + [i32] * 8 + [f32, i32] + [vp] * 4
+    lib.decode_attention_int8.argtypes = [vp] * 6 + [i32] * 10 + [f32, i32] + [vp] * 4
     lib.decode_attention_int8.restype = i32
 
 
@@ -188,20 +194,27 @@ _DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
 
 def check_contract(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                    length: torch.Tensor, window=None, attn_softcap: float = 0.0,
-                   k_scale=None, v_scale=None, dequant_dtype=torch.float32) -> None:
+                   k_scale=None, v_scale=None, dequant_dtype=torch.float32,
+                   kv0=None) -> None:
     """The shapes and types both the kernel and its plain version take;
     raises on any other.  (The plain version would compute any shape, but a
-    caller that passes the CPU tests must also run on the card.)  Caches are
-    both float32, both bfloat16, or both int8 with float32 ``k_scale`` and
-    ``v_scale`` (B, KV, S) and a ``dequant_dtype`` of float32 or bfloat16."""
+    caller that passes the CPU tests must also run on the card.)  q's KV
+    heads are the cache's: all of them (``kv0`` None, caches (B, KV, S,
+    dh)), or ``kv0 .. kv0 + KV - 1`` of caches (B, KV_cache, S, dh),
+    KV_cache >= kv0 + KV.  Caches are both float32, both bfloat16, or
+    both int8 with float32 ``k_scale`` and ``v_scale`` (B, KV_cache, S) and
+    a ``dequant_dtype`` of float32 or bfloat16."""
     if q.dim() != 4 or k_cache.dim() != 4:
         raise ValueError(f"q must be (B, KV, GQ, dh) and caches (B, KV, S, dh); got "
                          f"{tuple(q.shape)} and {tuple(k_cache.shape)}")
     b, kv, gq, dh = q.shape
-    s = k_cache.shape[2]
-    if k_cache.shape != (b, kv, s, dh) or v_cache.shape != k_cache.shape:
+    kvc, s = k_cache.shape[1], k_cache.shape[2]
+    if (k_cache.shape != (b, kvc, s, dh) or v_cache.shape != k_cache.shape
+            or (kv0 is None and kvc != kv)):
         raise ValueError(f"cache shapes {tuple(k_cache.shape)}, {tuple(v_cache.shape)} "
                          f"do not match q {tuple(q.shape)}")
+    if kv0 is not None and (int(kv0) != kv0 or kv0 < 0 or kv0 + kv > kvc):
+        raise ValueError(f"q's {kv} KV heads from kv0={kv0!r} do not lie in the cache's {kvc}")
     if length.shape != (b,):
         raise ValueError(f"length must have shape ({b},), got {tuple(length.shape)}")
     if dh not in SUPPORTED_DH:
@@ -222,8 +235,8 @@ def check_contract(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor
         raise TypeError("int8 caches take k_scale and v_scale, and other caches take neither")
     if int8:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-            if t.shape != (b, kv, s) or t.dtype != torch.float32:
-                raise ValueError(f"{name} must be float32 of shape {(b, kv, s)}, got "
+            if t.shape != (b, kvc, s) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 of shape {(b, kvc, s)}, got "
                                  f"{t.dtype} {tuple(t.shape)}")
         if dequant_dtype not in _DEQUANT_DTYPES:
             raise TypeError(f"dequant_dtype must be float32 or bfloat16, got {dequant_dtype}")
@@ -231,23 +244,25 @@ def check_contract(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor
 
 def decode_attention_cuda(
     q: torch.Tensor,        # (B, KV, GQ, dh) f32
-    k_cache: torch.Tensor,  # (B, KV, S, dh) f32, bf16 or int8
-    v_cache: torch.Tensor,  # (B, KV, S, dh), k_cache's type
+    k_cache: torch.Tensor,  # (B, KV_cache, S, dh) f32, bf16 or int8
+    v_cache: torch.Tensor,  # (B, KV_cache, S, dh), k_cache's type
     length: torch.Tensor,   # (B,) int32, 1 <= length[b] <= S
     window=None,            # None = full attention
     attn_softcap: float = 0.0,
-    k_scale=None,           # (B, KV, S) f32, with int8 caches only
+    k_scale=None,           # (B, KV_cache, S) f32, with int8 caches only
     v_scale=None,
     dequant_dtype=torch.float32,   # what an int8 value is rounded to after q * scale
+    kv0=None,               # the cache head of q's first KV head; None: q has every head
 ) -> torch.Tensor:
     """Launch the kernel, once, on the current stream (no synchronisation);
-    returns (B, KV, GQ, dh) f32.  Positions >= ``length[b]`` and below
-    ``length[b] - window`` are never read (nor their scales).  Allocates
-    ``out`` and nothing else once the workspace for this shape and stream
-    is cached."""
+    returns (B, KV, GQ, dh) f32 over the cache's heads ``kv0 .. kv0 + KV -
+    1``, read in place.  Positions >= ``length[b]`` and below ``length[b] -
+    window`` are never read (nor their scales), nor any other head.
+    Allocates ``out`` and nothing else once the workspace for this shape and
+    stream is cached."""
     global launches
     check_contract(q, k_cache, v_cache, length, window, attn_softcap, k_scale, v_scale,
-                   dequant_dtype)
+                   dequant_dtype, kv0)
     dev = q.device
     int8 = k_cache.dtype == torch.int8
     tensors = (q, k_cache, v_cache, length) + ((k_scale, v_scale) if int8 else ())
@@ -261,14 +276,15 @@ def decode_attention_cuda(
     if any(t.data_ptr() % 16 for t in (k_cache, v_cache)):
         raise ValueError("the caches must start on a 16-byte boundary")
     b, kv, gq, dh = q.shape
-    s = k_cache.shape[2]
+    kvc, s = k_cache.shape[1], k_cache.shape[2]
     lib = _LIB_INT8.get() if int8 else _LIB.get()
     chunk = chunk_positions(s, dh, tile_elem(k_cache.dtype))
     n_chunks = -(-s // chunk)
     stream = torch.cuda.current_stream(dev).cuda_stream
     part, counters = workspace(dev, stream, b, kv, gq, dh, n_chunks)
     out = torch.empty((b, kv, gq, dh), dtype=torch.float32, device=dev)
-    shape = (b, kv, s, gq, dh, chunk, n_chunks, window_positions(window, s), float(attn_softcap))
+    shape = (b, kv, kvc, int(kv0 or 0), s, gq, dh, chunk, n_chunks, window_positions(window, s),
+             float(attn_softcap))
     tail = (part.data_ptr(), counters.data_ptr(), out.data_ptr(), stream)
     if int8:
         err = lib.decode_attention_int8(
@@ -289,11 +305,12 @@ def decode_attention_cuda(
 def decode_attention_dispatch(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, length: torch.Tensor,
     window=None, attn_softcap: float = 0.0, k_scale=None, v_scale=None,
-    dequant_dtype=torch.float32,
+    dequant_dtype=torch.float32, kv0=None,
 ) -> torch.Tensor:
     """CPU tensors -> the plain version; CUDA tensors -> the kernel.  Both
     take only the shapes and types :func:`check_contract` accepts."""
-    args = (q, k_cache, v_cache, length, window, attn_softcap, k_scale, v_scale, dequant_dtype)
+    args = (q, k_cache, v_cache, length, window, attn_softcap, k_scale, v_scale, dequant_dtype,
+            kv0)
     if q.device.type == "cpu":
         check_contract(*args)
         return decode_attention_ref(*args)

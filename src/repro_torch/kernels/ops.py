@@ -109,24 +109,27 @@ def fused_masked_topk(
 
 def decode_attention(
     q: torch.Tensor,        # (B, KV, GQ, dh)
-    k_cache: torch.Tensor,  # (B, KV, S, dh) f32, bf16 or int8
-    v_cache: torch.Tensor,  # (B, KV, S, dh)
+    k_cache: torch.Tensor,  # (B, KV_cache, S, dh) f32, bf16 or int8
+    v_cache: torch.Tensor,  # (B, KV_cache, S, dh)
     length: torch.Tensor,   # (B,) valid positions, 1 <= length[b] <= S
     window=None,            # attend to positions >= length - window; None = all
     attn_softcap: float = 0.0,
-    k_scale=None,           # (B, KV, S) f32, with int8 caches
+    k_scale=None,           # (B, KV_cache, S) f32, with int8 caches
     v_scale=None,
     dequant_dtype=torch.float32,
+    kv0=None,               # the cache head of q's first KV head; None: every head
 ) -> torch.Tensor:
     """Flash-decode GQA attention; matches ``decode_attention_ref`` and
     returns (B, KV, GQ, dh) f32.  q is cast to f32; the caches are taken as
     they are (f32, bf16, or int8 with their scales, each value dequantized
     to ``dequant_dtype``) and are not padded: the kernel reads each row's
-    positions ``length - window <= p < length`` and nothing else.  int8
-    calls count as ``decode_attention`` launches too."""
+    positions ``length - window <= p < length`` of the heads ``kv0 .. kv0 +
+    KV - 1`` and nothing else (a rank's KV groups of a cache held whole, in
+    place; ``kv0`` None, the default, takes q's KV = KV_cache heads).  int8 calls
+    count as ``decode_attention`` launches too."""
     t0 = time.perf_counter()
     out = decode_attention_dispatch(q.to(torch.float32).contiguous(), k_cache, v_cache,
                                     length.to(torch.int32).contiguous(), window, attn_softcap,
-                                    k_scale, v_scale, dequant_dtype)
+                                    k_scale, v_scale, dequant_dtype, kv0)
     record_dispatch("decode_attention", time.perf_counter() - t0)
     return out

@@ -50,14 +50,15 @@ def masked_l2_topk_ref(
 
 def decode_attention_ref(
     q: torch.Tensor,        # (B, KV, GQ, dh)  one new token, grouped heads
-    k_cache: torch.Tensor,  # (B, KV, S, dh)
-    v_cache: torch.Tensor,  # (B, KV, S, dh)
+    k_cache: torch.Tensor,  # (B, KV_cache, S, dh)
+    v_cache: torch.Tensor,  # (B, KV_cache, S, dh)
     length: torch.Tensor,   # (B,) valid KV length per sequence
     window=None,            # None (or >= S) = full attention
     attn_softcap: float = 0.0,
-    k_scale=None,           # (B, KV, S) f32 scales of int8 caches
+    k_scale=None,           # (B, KV_cache, S) f32 scales of int8 caches
     v_scale=None,
     dequant_dtype=torch.float32,
+    kv0=None,               # the cache head of q's first KV head; None: every head
 ) -> torch.Tensor:
     """GQA decode attention over a (padded) KV cache; returns (B, KV, GQ, dh)
     f32.  The contract of the reference's ``decode_attention_xla``: scores
@@ -67,12 +68,21 @@ def decode_attention_ref(
     (bf16 is widened), as the kernel does; the reference oracle computes in
     q's type, which the wrapper makes f32.  int8 caches with scales are
     dequantized first (q * scale in f32, then cast to ``dequant_dtype``), as
-    the reference's int8 decode does before its attention."""
+    the reference's int8 decode does before its attention.  q's KV heads
+    are the cache's ``kv0 .. kv0 + KV - 1`` (``kv0`` None: from 0; one
+    rank's heads of a cache it holds whole), read as a view of it and
+    widened (f32: copied) to a contiguous f32 tensor, so the result is
+    bitwise that of the slice passed alone."""
     strict_fp32()
+    kv0 = kv0 or 0
+    heads = slice(kv0, kv0 + q.shape[1])
+    k_cache, v_cache = k_cache[:, heads], v_cache[:, heads]
+    if k_scale is not None:
+        k_scale, v_scale = k_scale[:, heads], v_scale[:, heads]
     if k_scale is not None:
         k_cache = (k_cache.float() * k_scale[..., None]).to(dequant_dtype)
         v_cache = (v_cache.float() * v_scale[..., None]).to(dequant_dtype)
-    q, k, v = q.float(), k_cache.float(), v_cache.float()
+    q, k, v = q.float(), k_cache.float().contiguous(), v_cache.float().contiguous()
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bkgd,bksd->bkgs", q, k) * scale
     if attn_softcap > 0:

@@ -18,19 +18,27 @@ imported only here), made for each cell and torn down after it.  Per cell:
   on fake tensors.  A serving model stores its weights in ``cfg.dtype``
   (bf16), a trainable one fp32 masters, as the port does;
   ``output_bytes`` likewise for the step's outputs;
-* ``cost_flops``, ``cost_bytes`` and ``temp_bytes`` (traced): the
-  one-device step under ``FakeTensorMode`` at the cell's batch divided by
+* ``cost_flops``, ``cost_bytes`` and ``temp_bytes`` (traced): one
+  device's step under ``FakeTensorMode`` at the cell's batch divided by
   the data axes, with ``FlopCounterMode`` (matmul FLOPs, every loop
   iteration counted: XLA's ``cost_analysis`` counts a scanned body once,
   so these differ from the reference's) and an accounting mode that sums
   the bytes every op reads and writes and the peak of the storages the
   step allocates beyond its inputs (weak references on storages, as
   ``torch.distributed._tools.mem_tracker.MemTracker`` keeps; MemTracker's
-  own module tracking refuses a layer called once a microbatch).  The
-  trace is one device's with every weight whole: the model axis is not
-  applied in it (``temp_scope``), though the train step splits over it
-  (``launch.train``, ``dist.tensor_parallel``), so on a mesh whose model
-  axis is larger than 1 ``temp_bytes`` is an upper bound.  A fake trace
+  own module tracking refuses a layer called once a microbatch).  On a
+  mesh whose model axis is larger than 1 the traced device is rank 0 of
+  that axis, for train, prefill and decode cells alike: the fake model is
+  cut to its blocks (``dist.tensor_parallel.shard_model`` over the fake
+  group's model axis), its split units run on them and its other units on
+  weights gathered whole, as the train step and serving run them, and
+  ``temp_scope`` names which ran split.  The model axis's all-reduces run
+  on fake tensors: the accounting counts each one's buffer as read and
+  written, like any op's, in ``cost_bytes`` (and the zero-padded buffers
+  of a gather in ``temp_bytes``); what they cost on the wire is the
+  roofline's collective term, ``analytic_cost``'s.  The data axes are
+  not traced: FSDP2's gathers are not in the trace, which runs on the
+  rank's whole blocks.  A fake trace
   costs seconds a layer, so a train or prefill cell of an attention model
   deeper than two periods of its layer pattern is traced at depths p and
   2p and extrapolated (``trace_depths``; a vlm model as its dense
@@ -69,6 +77,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from ..configs import ARCH_IDS, SHAPES, get_config
 from ..dist.sharding import (batch_sharding, cache_sharding, data_axes, param_sharding,
                              shard)
+from ..dist.tensor_parallel import split_units
 from .analytics import analytic_cost
 from .roofline import analyse
 
@@ -197,23 +206,33 @@ class _Accounting(TorchDispatchMode):
         return out
 
 
-def _trace_at(cfg, shape) -> Dict[str, float]:
+def _trace_at(cfg, shape, mesh=None) -> Dict[str, float]:
     """The step of ``shape`` (its batch the traced device's rows) on a fake
     ``Model(cfg)`` under the flop counter and :class:`_Accounting`: its
     flops, bytes accessed and temp bytes (the peak of what it allocates
-    beyond the model's weights and the step's inputs)."""
+    beyond the model's weights and the step's inputs).  With ``mesh`` (a
+    mesh over the fake process group) and a model axis larger than 1, the
+    model is first cut to rank 0's blocks of it
+    (``dist.tensor_parallel.shard_model``), so the trace is that rank's
+    step: split units on its blocks, gathered units whole, the model
+    axis's all-reduces on fake tensors."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
+    from ..dist.tensor_parallel import shard_model
     from ..models.model import Model
     from ..train.optimizer import AdamWConfig, adamw_init
     from ..train.train_step import TrainState, make_train_step
 
     with FakeTensorMode() as mode:
         model = Model(cfg, device="cpu")
+        if shape.kind == "train":
+            model.trainable()
+        if mesh is not None and dict(zip(mesh.mesh_dim_names, mesh.shape))["model"] > 1:
+            shard_model(model, mesh.get_group("model"))
         specs = model.input_specs(shape, mode)
         if shape.kind == "train":
-            params = dict(model.trainable().named_parameters())
+            params = dict(model.named_parameters())
             state = TrainState(params=params, opt=adamw_init(params))
             # the microbatches split the device's rows (fewer when it has
             # fewer rows than the reference's count)
@@ -255,19 +274,38 @@ def _at_depth(cfg, n: int):
     return dataclasses.replace(cfg, n_layers=n, **({"n_enc_layers": n} if cfg.is_encdec else {}))
 
 
-def _traced(cfg, shape) -> Dict[str, Any]:
-    """The traced fields of a cell: every layer traced, or (train and
-    prefill cells of deep attention models, whose fake trace costs seconds
-    a layer) the traces at depths p and 2p extrapolated to the model's
-    depth, every layer of a period (an encdec model's decoder and encoder
-    layer together) costing what the second period did."""
+def _traced(cfg, shape, mesh=None) -> Dict[str, Any]:
+    """The traced fields of a cell (one rank of ``mesh``'s model axis,
+    :func:`_trace_at`): every layer traced, or (train and prefill cells of
+    deep attention models, whose fake trace costs seconds a layer) the
+    traces at depths p and 2p extrapolated to the model's depth, every
+    layer of a period (an encdec model's decoder and encoder layer
+    together) costing what the second period did."""
     depths = _trace_depths(cfg, shape)
     if depths is None:
-        return {**_trace_at(cfg, shape), "trace_depths": [cfg.n_layers]}
-    lo, hi = (_trace_at(_at_depth(cfg, n), shape) for n in depths)
+        return {**_trace_at(cfg, shape, mesh), "trace_depths": [cfg.n_layers]}
+    lo, hi = (_trace_at(_at_depth(cfg, n), shape, mesh) for n in depths)
     periods = (cfg.n_layers - depths[0]) / (depths[1] - depths[0])
     out = {k: lo[k] + periods * (hi[k] - lo[k]) for k in lo}
     return {**out, "trace_depths": list(depths)}
+
+
+def _model_scope(cfg, n_model: int) -> str:
+    """What of the model axis the traced device runs, for ``temp_scope``."""
+    if n_model == 1:
+        return " with every weight whole (a model axis of 1)"
+    split = split_units(cfg, n_model)
+    units = ["attn"] if cfg.family != "ssm" else []
+    if cfg.is_moe:
+        units.append("experts")
+    if cfg.d_ff > 0 and (not cfg.is_moe or cfg.moe_shared_expert):
+        units.append("mlp")
+    ran = [f"{u} {'split' if split[u] else 'replicated'}" for u in units + ["vocab"]]
+    if cfg.family in ("hybrid", "ssm"):
+        ran.append("recurrences replicated")
+    return (f"; rank 0 of the model axis ({n_model}) traced on its blocks of the cut weights: "
+            f"{', '.join(ran)} (a replicated unit's cut weights gathered whole before use), "
+            "the axis's all-reduces on fake tensors")
 
 
 def _state_bytes(p_bytes: int) -> int:
@@ -351,13 +389,13 @@ def cell_record(cfg, shape, multi_pod: bool = False, mesh_shape=None,
                     out_b = b * cfg.vocab_size * 4 + _local_bytes(
                         mesh, cache, cache_sharding(mesh, cache, b))
             del model, params, specs
+        t_lower = time.time() - t0
+        b_loc = b // n_data if (b % n_data == 0 and b >= n_data) else b
+        reason = _untraced_reason(cfg, shape)
+        traced = None if reason else _traced(
+            cfg, dataclasses.replace(shape, global_batch=b_loc), mesh)
     finally:
         dist.destroy_process_group()
-    t_lower = time.time() - t0
-
-    b_loc = b // n_data if (b % n_data == 0 and b >= n_data) else b
-    reason = _untraced_reason(cfg, shape)
-    traced = None if reason else _traced(cfg, dataclasses.replace(shape, global_batch=b_loc))
     t_trace = time.time() - t0 - t_lower
 
     mf = _model_flops(cfg, shape)
@@ -389,9 +427,7 @@ def cell_record(cfg, shape, multi_pod: bool = False, mesh_shape=None,
         "trace_batch": b_loc,
         "trace_depths": traced["trace_depths"] if traced else None,
         "temp_scope": (f"one device traced at batch {b_loc} (the global batch over the data "
-                       f"axes) with every weight whole; the model axis ({n_model}) is not "
-                       "applied in this trace, though the train step splits over it"
-                       + (", so this is an upper bound" if n_model > 1 else "")
+                       f"axes)" + _model_scope(cfg, n_model)
                        + ("" if not traced or traced["trace_depths"] == [cfg.n_layers] else
                           f"; extrapolated to {cfg.n_layers} layers from traces at depths "
                           f"{traced['trace_depths']}")),

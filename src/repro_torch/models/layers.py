@@ -19,6 +19,13 @@ Conventions as there:
 * the int8 KV cache's per-vector quantisation (``quantize_kv``,
   ``dequantize_kv``), bit for bit the reference's.
 
+Under a model axis (``dist.tensor_parallel``) the same functions run one
+rank's share, in training and in serving alike: ``attn_qkv``/``attn_out``
+over the rank's heads (the config ``ModelAxis.attn_cfg`` and the rank's
+blocks of the weights), ``moe_ffn`` over the rank's experts (``axis``),
+and ``quantize_kv`` on K/V already gathered over the heads, since the
+cache is whole on every rank.
+
 Weights are parameter dictionaries keyed by the reference's names.  The
 reference keeps fp32 masters and casts them to the compute type before
 every use; the port stores them in that type already, which gives the same

@@ -62,6 +62,16 @@ Differences from the reference, each giving the same numbers:
   ``flash_attention``: the same fp32 scores over the cached K/V.  The
   cache keeps the reference's (B, F, KV, dh) ``xk``/``xv``; each step
   makes one (B, KV, F, dh) copy of each, which every layer reads.
+* A model cut over a model axis (``dist.tensor_parallel.shard_model``)
+  serves through the same ``prefill`` and ``decode_step``: the units the
+  axis splits run on the rank's blocks between ``_enter`` and ``_leave``,
+  the others on gathered weights, as training runs them.  The KV cache
+  stays whole on every rank (the reference's ``cache_sharding`` replicates
+  it over ``model``): a split attention's new K/V are gathered over the
+  heads and every rank writes every head, and the decode kernel reads the
+  rank's heads of the cache in place (``kv0``).  Every rank must make the
+  same calls with the same inputs: each step's collectives are the same on
+  every rank and in the same order.
 * ``input_specs`` returns ``FakeTensorMode`` tensors on the model's device
   (the dry-run's model is itself fake, on the CPU) in place of
   ``jax.ShapeDtypeStruct``: they hold no memory, and the kernel wrappers
@@ -285,12 +295,20 @@ class Model(nn.Module):
         """The output of ``unit``: summed over the model axis when it runs split."""
         return self.model_axis.leave(y) if self._split(unit) else y
 
-    def _whole_weights(self) -> None:
-        """Raise for a serving call on a model cut over a model axis."""
-        if self.model_axis is not None:
-            raise NotImplementedError(
-                "prefill and decode_step read whole weights; this model's weights are cut "
-                "over a model axis for training (launch.train.make_sharded_train_step)")
+    def _kv_heads(self) -> Tuple[int, int]:
+        """(kv0, KV_local): the heads of the whole cache this rank's
+        attention reads (all of them without a model axis)."""
+        if self.model_axis is None:
+            return 0, self.cfg.n_kv_heads
+        return self.model_axis.kv_heads
+
+    def _cache_heads(self, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """K/V (B, S, KV_local, dh) of this rank's heads made whole for the
+        cache, which every rank holds whole: stacked and gathered over the
+        heads in one all-reduce when attention runs split, else as given."""
+        if not self._split("attn"):
+            return k, v
+        return self.model_axis.gather(torch.stack((k, v)), 3).unbind(0)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -495,7 +513,7 @@ class Model(nn.Module):
             h = rms_norm(x, ln, cfg.norm_eps)
             if step:
                 st = {k: t[at] for k, t in cache[key].items()}
-                y, new = step_fn(p, h[:, 0], cfg, st)
+                y, new = step_fn(self._w(p), h[:, 0], cfg, st)
                 y = y[:, None]
             else:
                 y, new = seq_fn(self._w(p), h, cfg)
@@ -680,23 +698,24 @@ class Model(nn.Module):
         quantised into it, while the layer's own attention runs on the
         unquantised K/V, as the reference's.  A vlm model's prefix takes
         the cache's first P positions; an encdec model's encoder output
-        fills the cross cache."""
+        fills the cross cache.  On a model cut over a model axis each
+        split attention's K/V (and the cross K/V) are gathered over the
+        heads, and every rank fills the whole cache."""
         cfg = self.cfg
-        self._whole_weights()
         x, n_prefix, (xk, xv) = self._prompt(batch)
         b, s = x.shape[:2]
         if s > max_len:
             raise ValueError(f"prompt length {s} exceeds the cache's max_len {max_len}")
         cache = self.init_cache(b, max_len)
         if xk is not None:
-            cache["xk"], cache["xv"] = xk, xv
+            cache["xk"], cache["xv"] = self._cache_heads(xk, xv)
         if cfg.family == "ssm":
             x = self._xlstm(x, cache)
         else:
             positions = torch.arange(s, device=self.device)[None, :]
             for i, (lp, w) in enumerate(zip(self.layers, self.windows)):
                 x, k, v = self._attn_block(lp, x, w, positions)
-                for name, t in (("k", k), ("v", v)):
+                for name, t in zip(("k", "v"), self._cache_heads(k, v)):
                     t = t.transpose(1, 2)                   # (B, KV, S, dh)
                     if cfg.kv_cache_int8:
                         t, scale = quantize_kv(t)
@@ -719,26 +738,33 @@ class Model(nn.Module):
         ``lengths[b]`` must be < the cache's max_len; a vlm model's count
         its prefix).  An encdec model's layers then cross-attend to the
         whole cross cache through the decode kernel, over one (B, KV, F, dh)
-        copy of ``xk`` and of ``xv`` that every layer reads.  Returns
+        copy of ``xk`` and of ``xv`` that every layer reads.  On a model cut
+        over a model axis where attention runs split, each rank computes q,
+        k and v of its own KV groups, writes the gathered k and v into every
+        head of its whole cache, and the kernel reads its heads of the cache
+        in place (``kv0``); the cross copies take its heads only.  Returns
         (logits (B,V) fp32, the cache, updated in place)."""
-        cfg = self.cfg
-        self._whole_weights()
+        cfg, acfg = self.cfg, self._attn_cfg()
         tokens = self._tokens(tokens)
         lengths = torch.as_tensor(lengths, device=self.device).long()
         x = self._embed(tokens[:, None])                    # (B, 1, D)
         if cfg.family == "ssm":
             return self._logits(self._xlstm(x, cache, step=True))[:, 0], cache
         b = tokens.shape[0]
-        kvh, g, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.dh
+        kv0, kvl = self._kv_heads()
+        g, dh = acfg.n_heads // acfg.n_kv_heads, cfg.dh
         rows = torch.arange(b, device=self.device)
         positions = lengths[:, None]
         int8 = cfg.kv_cache_int8
         if cfg.is_encdec:
-            xk, xv = (cache[n].transpose(1, 2).contiguous() for n in ("xk", "xv"))
+            xk, xv = (cache[n][:, :, kv0:kv0 + kvl].transpose(1, 2).contiguous()
+                      for n in ("xk", "xv"))
             x_len = torch.full((b,), cfg.frontend_len, device=self.device, dtype=torch.int32)
         for i, (lp, w) in enumerate(zip(self.layers, self.windows)):
-            h = rms_norm(x, lp.ln1, cfg.norm_eps)
-            q, k, v = attn_qkv(lp.attn, h, cfg, positions)
+            p = self._w(lp.attn)
+            h = self._enter(rms_norm(x, lp.ln1, cfg.norm_eps), "attn")
+            q, k, v = attn_qkv(p, h, acfg, positions)
+            k, v = self._cache_heads(k, v)                  # (B, 1, KV, dh): every head
             kc, vc = cache["k"][i], cache["v"][i]           # (B, KV, S, dh) views
             scales = {}
             if int8:
@@ -754,8 +780,8 @@ class Model(nn.Module):
             # f32 out of the kernel, back to the compute type as the
             # reference's decode_attention_xla returns q's type
             o = decode_attention(q[:, 0], kc, vc, lengths + 1, window=w,
-                                 attn_softcap=cfg.attn_softcap, **scales).to(x.dtype)
-            o = attn_out(lp.attn, o.reshape(b, 1, kvh, g, dh), cfg)
+                                 attn_softcap=cfg.attn_softcap, kv0=kv0, **scales).to(x.dtype)
+            o = self._leave(attn_out(p, o.reshape(b, 1, kvl, g, dh), acfg), "attn")
             if cfg.post_norms:
                 o = rms_norm(o, lp.ln1b, cfg.norm_eps)
             x = x + o

@@ -48,7 +48,13 @@ class ServeEngine:
     on the model's device; the weights live in the model.  Requests are
     token prompts: a model with a frontend (encdec frames, vlm patches)
     raises ``NotImplementedError``, where the reference's engine fails
-    later, at prefill, for want of its frames or of the prefix offset."""
+    later, at prefill, for want of its frames or of the prefix offset.
+
+    A model cut over a model axis (``dist.tensor_parallel.shard_model``)
+    is served as it is: every rank runs an engine over the same requests,
+    and since the batching and the greedy tokens (from logits every rank
+    holds whole) are the same on every rank, so are the model's
+    collectives and their order."""
 
     def __init__(self, model, batch_slots: int = 8, max_len: int = 512,
                  eos_id: Optional[int] = None):

@@ -375,3 +375,58 @@ def test_workspace_pads_m_and_l_to_float4():
     of m and of l, each padded to 428, so acc starts 16-byte aligned."""
     n_part, _ = workspace_numel(1, 5, 5, 64, 17)
     assert n_part == 2 * 428 + 425 * 64 and (2 * 428) % 4 == 0
+
+
+# ---------------------------------------------------------------------------
+# one rank's KV heads of a cache held whole (kv0)
+# ---------------------------------------------------------------------------
+def _split_inputs(dtype, seed=31, b=4, kvc=4, kv=2, gq=2, s=300, dh=64):
+    """q over ``kv`` of a (b, kvc, s, dh) cache's heads, the cache in
+    ``dtype`` (int8 with its scales and a bf16 dequant), ragged lengths."""
+    from repro_torch.models.layers import quantize_kv
+
+    rng, q, k, v = _inputs(seed, b, kvc, gq, s, dh)
+    q = torch.as_tensor(q[:, :kv])
+    k, v = torch.as_tensor(k), torch.as_tensor(v)
+    extra = {}
+    if dtype == torch.int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        extra = dict(k_scale=ks, v_scale=vs, dequant_dtype=torch.bfloat16)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    length = torch.as_tensor(rng.integers(1, s + 1, b).astype(np.int32))
+    return q, k, v, length, extra
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+def test_plain_version_reads_the_head_slice_in_place(dtype):
+    """With kv0 the plain version equals, bit for bit, the plain version on
+    a contiguous copy of the cache's heads kv0 .. kv0 + KV - 1 (and of
+    their int8 scales), with and without a window and a softcap."""
+    q, k, v, length, extra = _split_inputs(dtype)
+    kv = q.shape[1]
+    for kv0 in (0, 1, 2):
+        heads = slice(kv0, kv0 + kv)
+        sliced = {n: t[:, heads].contiguous() if n.endswith("scale") else t
+                  for n, t in extra.items()}
+        for window, cap in ((None, 0.0), (100, 50.0)):
+            got = decode_attention(q, k, v, length, window=window, attn_softcap=cap, kv0=kv0,
+                                   **extra)
+            want = decode_attention(q, k[:, heads].contiguous(), v[:, heads].contiguous(),
+                                    length, window=window, attn_softcap=cap, **sliced)
+            assert got.shape == q.shape and torch.equal(got, want), (kv0, window)
+            assert torch.equal(got, decode_attention_ref(q, k, v, length, window, cap,
+                                                         kv0=kv0, **extra))
+
+
+def test_head_slice_past_the_cache_raises():
+    q, k, v, length, _ = _split_inputs(torch.float32)
+    for kv0 in (3, -1, 4):
+        with pytest.raises(ValueError, match="kv0"):
+            decode_attention(q, k, v, length, kv0=kv0)
+    with pytest.raises(ValueError, match="kv0"):
+        decode_attention(torch.zeros((4, 5, 2, 64)), k, v, length, kv0=0)
+    with pytest.raises(ValueError, match="do not match"):
+        decode_attention(q, k, v, length)      # a slice of the heads names its kv0
+

@@ -1,13 +1,18 @@
 """The port's dry-run against the JAX package's arithmetic, on the CPU.
 
 * on a fake (4, 2) mesh, for the reduced gemma2 and olmoe (train,
-  prefill, decode): every key of the reference's record,
+  prefill, decode): every key of the reference's record, the trace one
+  rank of the model axis (its blocks of the cut weights),
   ``argument_bytes`` equal to the local shard bytes of the reference's own
   spec arithmetic at the port's stored types, the analytic roofline equal
   to the reference's ``analytic_cost``, train FLOPs within the
-  reference's 7-12 x N·D band (``tests/test_roofline.py``), decode GEMM
-  FLOPs within 2 % of the analytic projection and head (MoE: every expert
-  over its slots, the port's dense dispatch);
+  reference's 7-12 x N·D band (``tests/test_roofline.py``; N the
+  parameters the rank's compute reads), decode GEMM FLOPs within 2 % of
+  the rank's share of the analytic projection and head (MoE: every expert
+  of the rank over its slots, the port's dense dispatch);
+* a (1, 1) record's traced fields equal the trace of the whole model, and
+  a (1, 2) train cell (weights and their grads dominating its temp) counts
+  at most 0.6 of the (1, 1) cell's FLOPs and temp bytes;
 * reduced seamless-m4t (encdec) and internvl2 (vlm) prefill and decode
   cells on a 1 x 1 mesh record ``status: ok`` with the reference's
   argument bytes (the vlm prefill's cache holds the prefix), an unknown
@@ -35,6 +40,7 @@ from repro.launch.analytics import analytic_cost as ref_analytic_cost
 from repro.models import Model as RefModel
 from repro_torch.configs import ShapeSpec, get_config
 from repro_torch.dist.sharding import reference_path
+from repro_torch.dist.tensor_parallel import ModelAxis
 from repro_torch.launch import dryrun, report
 from repro_torch.launch.analytics import analytic_cost
 from repro_torch.models import Model
@@ -103,7 +109,7 @@ def test_dryrun_record_keys_and_argument_bytes(dry_records, arch, kind):
     assert REF_RECORD_KEYS <= set(rec)
     assert set(rec["memory_analysis"]) == REF_MEMORY_KEYS
     assert set(rec["roofline"]) == ROOFLINE_KEYS
-    assert rec["trace_batch"] == 2 and "model axis (2) is not applied" in rec["temp_scope"]
+    assert rec["trace_batch"] == 2 and "rank 0 of the model axis (2) traced" in rec["temp_scope"]
     assert rec["cost_flops"] > 0 and rec["cost_bytes"] > 0 and rec["memory_analysis"][
         "temp_bytes"] > 0
     shape = next(s for s in DRY_SHAPES if s.kind == kind)
@@ -116,33 +122,76 @@ def test_dryrun_record_keys_and_argument_bytes(dry_records, arch, kind):
         ac.coll_bytes_per_dev
 
 
+def _rank_params(cfg, n_model: int) -> int:
+    """The parameters one rank's compute reads on a model axis of
+    ``n_model``: a split unit's cut weights as its block, every other
+    weight whole (a gathered weight is read whole)."""
+    axis = ModelAxis(cfg, None, n_model, 0)
+    return sum(t.numel() // (n_model if axis.use(name, t.shape)[0] == "split" else 1)
+               for name, t in Model(cfg, device="cpu").named_parameters())
+
+
 def test_dryrun_train_flops_in_the_reference_band(dry_records):
     """Dense train FLOPs ~ 8 N D (6ND + the recomputed forward) + attention:
     inside the reference's 7-12 x N·D band (tests/test_roofline.py), D the
-    traced device's tokens."""
+    traced device's tokens and N the parameters its compute reads (rank 0
+    of the model axis of 2)."""
     cfg = get_config("gemma2-2b").reduced()
     rec = dry_records["gemma2-2b", "train"]
-    nd = cfg.n_params() * rec["trace_batch"] * DRY_SHAPES[0].seq_len
+    nd = _rank_params(cfg, 2) * rec["trace_batch"] * DRY_SHAPES[0].seq_len
+    assert _rank_params(cfg, 2) < 0.6 * cfg.n_params()
     assert 7.0 * nd < rec["cost_flops"] < 12.0 * nd
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "olmoe-1b-7b"])
 def test_dryrun_decode_gemm_flops(dry_records, arch):
     """Traced decode FLOPs less the plain attention's two einsums over the
-    cache (4 b h dh S a layer) equal the analytic projection and head flops
-    within 2 %.  The port's MoE runs every expert over its C slots at
-    decode (the reference's dense dispatch), so there the experts' GEMMs
-    count E x C, not top_k, SwiGLUs a row."""
+    cache (4 b h dh S a layer, over the rank's heads) equal rank 0's share
+    of the analytic projection and head flops within 2 %: at (4, 2) both
+    configs split attention, the MLP or the experts and the vocab over the
+    model axis of 2, so the rank runs half of those GEMMs; the MoE router
+    runs whole on every rank.  The port's MoE runs every expert over its C
+    slots at decode (the reference's dense dispatch), so there the
+    experts' GEMMs count E x C, not top_k, SwiGLUs a row."""
     cfg = get_config(arch).reduced()
+    n = 2
     rec, shape = dry_records[arch, "decode"], DRY_SHAPES[2]
     b, s, d = rec["trace_batch"], shape.seq_len, cfg.d_model
-    attn = cfg.n_layers * 4 * b * cfg.n_heads * cfg.dh * s
+    attn = cfg.n_layers * 4 * b * cfg.n_heads * cfg.dh * s / n
     proj = analytic_cost(cfg, shape, 4, 2).detail["proj_flops_per_token_per_layer"]
+    router = 2 * d * cfg.n_experts if cfg.is_moe else 0
     if cfg.is_moe:
         cap = int(max(1, cfg.capacity_factor * 1 * cfg.top_k_experts / cfg.n_experts))
         proj += 6 * d * cfg.d_ff * (cfg.n_experts * cap - cfg.top_k_experts)
-    want = cfg.n_layers * proj * b + 2 * d * cfg.vocab_size * b
+    want = (cfg.n_layers * (proj - router) * b + 2 * d * cfg.vocab_size * b) / n \
+        + cfg.n_layers * router * b
     assert abs(rec["cost_flops"] - attn - want) <= 0.02 * want
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_one_by_one_record_traces_the_whole_model(kind):
+    """A (1, 1) mesh applies no model axis: its traced fields are the
+    trace of the whole model, as they were before the trace cut a rank."""
+    cfg = get_config("gemma2-2b").reduced()
+    shape = next(s for s in DRY_SHAPES if s.kind == kind)
+    rec = dryrun.cell_record(cfg, shape, mesh_shape=(1, 1), arch="gemma2-2b")
+    whole = dryrun._traced(cfg, shape)
+    assert "with every weight whole" in rec["temp_scope"]
+    assert rec["cost_flops"] == whole["flops"] and rec["cost_bytes"] == whole["bytes"]
+    assert rec["memory_analysis"]["temp_bytes"] == int(whole["temp"])
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "olmoe-1b-7b"])
+def test_one_rank_of_two_traces_at_most_six_tenths(arch):
+    """At (1, 2) the traced rank holds half of every split unit's weights,
+    so at a batch small enough that the weights and their grads make up
+    the step's temp (2 x 16 tokens), its train FLOPs and temp bytes are at
+    most 0.6 of the (1, 1) cell's (observed 0.500 and 0.501)."""
+    cfg, shape = get_config(arch).reduced(), ShapeSpec("train_16", 16, 2, "train")
+    half, whole = (dryrun.cell_record(cfg, shape, mesh_shape=m, arch=arch)
+                   for m in ((1, 2), (1, 1)))
+    assert half["cost_flops"] <= 0.6 * whole["cost_flops"]
+    assert half["memory_analysis"]["temp_bytes"] <= 0.6 * whole["memory_analysis"]["temp_bytes"]
 
 
 FRONTEND_ARCHS = ["seamless-m4t-large-v2", "internvl2-76b"]

@@ -145,7 +145,7 @@ def resume_case(mesh, job: dict) -> dict:
     return {"loss": float(met["loss"])}
 
 
-def worker(rank, world, port, jobs, queue):
+def worker(rank, world, port, jobs, queue, case=None):
     torch.set_num_threads(1)
     try:
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
@@ -156,8 +156,8 @@ def worker(rank, world, port, jobs, queue):
                 if job["mesh"] not in meshes:
                     meshes[job["mesh"]] = mesh_mod.make_custom_mesh(*job["mesh"],
                                                                     device_type="cpu")
-                out[key] = (resume_case if job.get("resume") else run_case)(
-                    meshes[job["mesh"]], job)
+                fn = case or (resume_case if job.get("resume") else run_case)
+                out[key] = fn(meshes[job["mesh"]], job)
             queue.put((rank, out))
         finally:
             dist.destroy_process_group()
@@ -171,15 +171,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(world: int, jobs: dict) -> dict:
+def spawn(world: int, jobs: dict, case=None) -> dict:
     """Run ``jobs`` (key -> job, in order; each on its ``"mesh"``, a
     (data, model) shape of ``world`` ranks) in ``world`` spawned gloo
-    ranks; returns {rank: {key: result}}.  A rank's exception fails the
-    test with its traceback."""
+    ranks, each through ``case(mesh, job)`` (a module-level function;
+    default: this module's train cases); returns {rank: {key: result}}.
+    A rank's exception fails the test with its traceback."""
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=worker, args=(r, world, port, jobs, queue), daemon=True)
+    procs = [ctx.Process(target=worker, args=(r, world, port, jobs, queue, case), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
