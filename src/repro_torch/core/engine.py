@@ -30,7 +30,12 @@ Observability follows the reference: ``set_tracer`` installs a
 ``predicate_compile``, ``clause``, ``execute``, ``group``, ``write``,
 ``compact``) carry the reference's deterministic attributes, ``execute``
 spans the kernel-dispatch deltas of their body; ``stats`` is the public
-counter surface; ``swap_planner`` installs a refit head.
+counter surface; ``swap_planner`` installs a refit head.  The port adds
+spans of its own, which the reference does not open: each exact or routed
+group's ``mask``, the exact group's ``h2d``, ``gather`` and ``scan``, the
+post group's ``ivf.search`` (``ivf.probe``, ``ivf.scan``) and
+``post.check``, each predicate-cache miss's ``bitmap_compile``, and a root
+``package`` after ``execute``.
 """
 from __future__ import annotations
 
@@ -143,28 +148,32 @@ class QueryLabel:
     clauses: Optional[Tuple["QueryLabel", ...]] = None
 
 
-def _kernel_snapshot() -> Tuple[dict, dict]:
+def _kernel_snapshot() -> Tuple[dict, dict, int]:
     """Current (dispatch counts, dispatch wall) of the process-global kernel
-    ledger: an execute span annotates the DELTA across its body, so the
-    span carries exactly its own dispatches."""
+    ledger, and a reader of the launches' device time opened here: an
+    execute span annotates the DELTA across its body, so the span carries
+    exactly its own dispatches."""
     from ..kernels import ops
 
-    return ops.dispatch_counts(), ops.dispatch_wall()
+    return ops.dispatch_counts(), ops.dispatch_wall(), ops.device_timing_begin()
 
 
-def _annotate_kernel_delta(tracer, counts0: dict, wall0: dict) -> None:
-    """Attach per-kernel dispatch deltas since ``counts0``/``wall0`` to the
-    open span: counts on the deterministic ledger (``kernel_<name>``
-    attrs), wall seconds on the real ledger (``kernel:<name>`` wall_detail
-    keys).  The ledger's wall is enqueue time on a CUDA device."""
+def _annotate_kernel_delta(tracer, snapshot: Tuple[dict, dict, int]) -> None:
+    """Attach per-kernel dispatch deltas since ``snapshot`` to the open
+    span: counts on the deterministic ledger (``kernel_<name>`` attrs),
+    seconds on the real ledger (``kernel:<name>`` wall_detail keys).  The
+    seconds are the launches' device time where ``fused_masked_topk`` timed
+    them with CUDA events (a CUDA device), else the dispatch call's wall."""
     from ..kernels import ops
 
+    counts0, wall0, mark = snapshot
+    device_s = ops.device_timing_end(mark)
     for name, n in ops.dispatch_counts().items():
         d = n - counts0.get(name, 0)
         if d:
             tracer.annotate(**{f"kernel_{name}": d})
     for name, s in ops.dispatch_wall().items():
-        dw = s - wall0.get(name, 0.0)
+        dw = device_s[name] if name in device_s else s - wall0.get(name, 0.0)
         if dw > 0.0:
             tracer.add_wall(f"kernel:{name}", dw)
 
@@ -222,7 +231,10 @@ def _execute_grouped(
     ``merge_topk``, base part first, so equal distances keep handle order,
     which a fresh build over the compacted corpus reproduces (its handle ->
     position map is monotone).  Each group runs under a ``group`` span
-    with the reference's attributes (``live=True`` on a mutated corpus).
+    with the reference's attributes (``live=True`` on a mutated corpus);
+    inside it the port's own spans: ``mask`` around an exact or routed
+    group's base mask (and the exact group's passing count), then
+    ``search_masked``'s and ``search_rows``' spans.
     Returns ``(dists (B, k), ids (B, k), expansion_rounds (B,))``."""
     tr = tracer if tracer is not None else NULL_TRACER
     b = len(preds)
@@ -235,15 +247,21 @@ def _execute_grouped(
     seg_exec = None
     if live is not None and live.seg_n:
         seg_exec = PreFilterExec(live.seg_vectors_dev(), live.seg_cat(), live.seg_num())
-    masks: dict = {}
+    masks: dict = {}        # (scan executor?, pred) -> [base mask, passing count or None]
     live_attr = {} if live is None else {"live": True}
 
-    def base_mask(ex, pred) -> np.ndarray:
+    def base_mask(ex, pred, count: bool) -> Tuple[np.ndarray, Optional[int]]:
+        """The memoised base mask of ``pred`` and, with ``count``, its
+        passing count (memoised too, so a mask is counted once)."""
         key = (ex is pre_exec, pred)
-        if key not in masks:
+        hit = masks.get(key)
+        if hit is None:
             m = ex.candidate_mask(pred)
-            masks[key] = m if live is None else m[: live.base_n] & alive[: live.base_n]
-        return masks[key]
+            hit = masks[key] = [m if live is None else m[: live.base_n] & alive[: live.base_n],
+                                None]
+        if count and hit[1] is None:
+            hit[1] = int(hit[0].sum())
+        return hit[0], hit[1]
 
     def finish(rows, pred, bd, bi):
         if seg_exec is not None:
@@ -264,10 +282,11 @@ def _execute_grouped(
             with tr.span("group", decision=STRATEGY_NAMES[decision], backend=bk,
                          knob=knob, n_rows=len(rows), **live_attr):
                 t0 = time.perf_counter()
-                m = base_mask(ex, pred)
-                res = ex.search_masked(queries[rows], m, k, t0=t0)
+                with tr.span("mask"):
+                    m, n_pass = base_mask(ex, pred, count=True)
+                res = ex.search_masked(queries[rows], m, k, t0=t0, n_pass=n_pass, tracer=tr)
                 if tr.enabled:
-                    tr.annotate(n_candidates=int(m.sum()))
+                    tr.annotate(n_candidates=n_pass)
                 finish(rows, pred, res.dists, res.ids)
     routed = routes is not None and backend_set is not None
     post_rows = [i for i in range(b)
@@ -278,7 +297,7 @@ def _execute_grouped(
             d, ids, rnd = post_exec.search_rows(
                 queries[post_rows], [preds[i] for i in post_rows], k,
                 [float(ests[i]) for i in post_rows],
-                alive=None if live is None else alive[: live.base_n],
+                alive=None if live is None else alive[: live.base_n], tracer=tr,
             )
             rounds[post_rows] = rnd
             groups = {}
@@ -297,10 +316,12 @@ def _execute_grouped(
             bk, knob = backend_set.classes()[ci]
             with tr.span("group", decision="post", backend=str(bk), knob=str(knob),
                          n_rows=len(rows), **live_attr):
-                m = base_mask(ipre_exec or pre_exec, pred)
+                ex = ipre_exec or pre_exec
+                with tr.span("mask"):
+                    m, _ = base_mask(ex, pred, count=False)
                 d, ids = backend_set.search_class(ci, queries[rows], m, k)
                 if tr.enabled:
-                    tr.annotate(n_candidates=int(m.sum()))
+                    tr.annotate(n_candidates=base_mask(ex, pred, count=True)[1])
                 finish(rows, pred, d[:, :k], ids[:, :k])
     return out_d, out_i, rounds
 
@@ -476,6 +497,7 @@ class FilteredANNEngine:
         # the no-op tracer by default; an installed one survives compaction
         # rebuilds (compact() re-runs build_stats), as the trained heads do
         self.tracer = getattr(self, "tracer", NULL_TRACER)
+        self.estimator.tracer = self.tracer
         self.build_time_["stats"] = t1 - t0
         self.build_time_["attr_index"] = t2 - t1
         return self
@@ -663,6 +685,7 @@ class FilteredANNEngine:
         """Install a :class:`repro_torch.obs.Tracer` on every serving path
         (``None`` restores the no-op default)."""
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.estimator.tracer = self.tracer
         return self
 
     @staticmethod
@@ -1077,23 +1100,25 @@ class FilteredANNEngine:
         tr = self.tracer
         with tr.span("execute", n_queries=1, k=int(k), live=False,
                      decision=STRATEGY_NAMES[decision]):
-            kc0, kw0 = _kernel_snapshot() if tr.enabled else ({}, {})
-            if decision == INDEXED_PRE:
-                res = self.ipre_exec.search(q, pred, k)
-            elif decision == PRE_FILTER:
-                res = self.pre_exec.search(q, pred, k)
-            elif route >= 0 and self.backend_set is not None:
-                # routed: mask once (bitmap-indexed when covered), then the
-                # chosen backend's masked search at the chosen knob tier
-                t0 = time.perf_counter()
-                mask = self.ipre_exec.candidate_mask(pred)
-                d, ids = self.backend_set.search_class(route, q, mask, k)
-                res = SearchResult(d, ids, time.perf_counter() - t0, "post")
-            else:
-                # the estimate also *parameterises* the post-filter executor
-                res = self.post_exec.search(q, pred, k, est_selectivity=plan.est)
-            if tr.enabled:
-                _annotate_kernel_delta(tr, kc0, kw0)
+            snap = _kernel_snapshot() if tr.enabled else None
+            try:
+                if decision == INDEXED_PRE:
+                    res = self.ipre_exec.search(q, pred, k)
+                elif decision == PRE_FILTER:
+                    res = self.pre_exec.search(q, pred, k)
+                elif route >= 0 and self.backend_set is not None:
+                    # routed: mask once (bitmap-indexed when covered), then the
+                    # chosen backend's masked search at the chosen knob tier
+                    t0 = time.perf_counter()
+                    mask = self.ipre_exec.candidate_mask(pred)
+                    d, ids = self.backend_set.search_class(route, q, mask, k)
+                    res = SearchResult(d, ids, time.perf_counter() - t0, "post")
+                else:
+                    # the estimate also *parameterises* the post-filter executor
+                    res = self.post_exec.search(q, pred, k, est_selectivity=plan.est)
+            finally:
+                if snap is not None:
+                    _annotate_kernel_delta(tr, snap)
         res.backend, res.knob = plan.backend, plan.knob
         res.elapsed += plan_overhead   # end-to-end includes planning (paper §4.1)
         return PlannedResult(res, plan, plan_overhead)
@@ -1110,15 +1135,18 @@ class FilteredANNEngine:
         identity = len(exp_preds) == len(preds) and all(len(m) == 1 for m in row_map)
         tr = self.tracer
         with tr.span("execute", **span):
-            kc0, kw0 = _kernel_snapshot() if tr.enabled else ({}, {})
-            d, ids, rounds = _execute_grouped(
-                self.pre_exec, self.ipre_exec, self.post_exec,
-                queries if identity else queries[exp_rows], exp_preds, k, decisions, ests,
-                routes=routes, backend_set=self.backend_set, live=self.live, tracer=tr,
-            )
-            out = collapse_clause_results(d, ids, rounds, row_map, k)
-            if tr.enabled:
-                _annotate_kernel_delta(tr, kc0, kw0)
+            snap = _kernel_snapshot() if tr.enabled else None
+            try:
+                d, ids, rounds = _execute_grouped(
+                    self.pre_exec, self.ipre_exec, self.post_exec,
+                    queries if identity else queries[exp_rows], exp_preds, k, decisions,
+                    ests, routes=routes, backend_set=self.backend_set, live=self.live,
+                    tracer=tr,
+                )
+                out = collapse_clause_results(d, ids, rounds, row_map, k)
+            finally:
+                if snap is not None:
+                    _annotate_kernel_delta(tr, snap)
         return out
 
     def _query_grouped(self, q: np.ndarray, pred: AnyPredicate, k: int,
@@ -1132,7 +1160,8 @@ class FilteredANNEngine:
             span.update(decision="dnf", n_clauses=plan.n_clauses)
         d, ids, rounds = self._execute(q, [pred], k, [plan], span)
         share = time.perf_counter() - t0 + plan_overhead
-        return package_results(d, ids, rounds, [plan], share, plan_overhead)[0]
+        with self.tracer.span("package"):
+            return package_results(d, ids, rounds, [plan], share, plan_overhead)[0]
 
     def batch_query(
         self, queries: np.ndarray, preds: Sequence[AnyPredicate], k: int = 10
@@ -1148,7 +1177,8 @@ class FilteredANNEngine:
         d, ids, rounds = self._execute(queries, preds, k, plans,
                                        dict(n_queries=b, k=int(k), live=self.live.dirty))
         share = (time.perf_counter() - t0) / max(b, 1) + plan_share
-        return package_results(d, ids, rounds, plans, share, plan_share)
+        with self.tracer.span("package"):
+            return package_results(d, ids, rounds, plans, share, plan_share)
 
     # ------------------------------------------------------------------
     def ground_truth_masked(self, q: np.ndarray, mask: np.ndarray, k: int = 10) -> np.ndarray:

@@ -27,6 +27,7 @@ import torch
 
 from ..index.ivf import IVFIndex
 from ..kernels.ops import fused_masked_topk
+from ..obs.trace import NULL_TRACER
 from .predicates import AnyPredicate
 from .util import next_pow2
 
@@ -96,18 +97,25 @@ class PreFilterExec:
 
     def search_masked(
         self, queries: np.ndarray, mask: np.ndarray, k: int,
-        t0: Optional[float] = None,
+        t0: Optional[float] = None, n_pass: Optional[int] = None, tracer=None,
     ) -> SearchResult:
-        """Exact top-k under a precomputed candidate mask.
+        """Exact top-k under a precomputed candidate mask (``n_pass``: its
+        passing count, when the caller has it already).
 
         The kernel's per-query results do not depend on the batch or on the
         row count, so neither the queries nor the gathered subset are padded
-        (the reference pads both to powers of two to bound its jit shapes)."""
+        (the reference pads both to powers of two to bound its jit shapes).
+        ``tracer`` times the steps under the caller's open span: ``h2d`` (the
+        queries and the mask to the device; ``bytes``), ``gather`` (the
+        passing rows, gathered branch only) and ``scan`` (the launch and the
+        results back on the host)."""
         if t0 is None:
             t0 = time.perf_counter()
+        tr = tracer if tracer is not None else NULL_TRACER
         b = queries.shape[0]
         n = self.vectors.shape[0]
-        n_pass = int(mask.sum())
+        if n_pass is None:
+            n_pass = int(mask.sum())
         if n_pass == 0:
             return SearchResult(
                 np.full((b, k), np.inf, np.float32),
@@ -115,26 +123,34 @@ class PreFilterExec:
                 time.perf_counter() - t0,
                 self.strategy_name,
             )
-        q = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
-        m = torch.as_tensor(np.asarray(mask, bool), device=self.device)
+        with tr.span("h2d"):
+            qh, mh = np.asarray(queries, np.float32), np.asarray(mask, bool)
+            q = torch.as_tensor(qh, device=self.device)
+            m = torch.as_tensor(mh, device=self.device)
+            if tr.enabled:
+                tr.annotate(bytes=qh.nbytes + mh.nbytes)
         kk = min(k, n_pass)
-        if n_pass > self.FULL_SCAN_FRAC * n:
-            # large passing set: masked fused top-k over the whole corpus,
-            # ids come back global already
-            d, gids = fused_masked_topk(q, self.vectors, m, kk)
-        else:
-            # small passing set: gather the passing rows on the device
-            idx = torch.nonzero(m).squeeze(1)
-            sub = self.vectors[idx]
-            d, local = fused_masked_topk(q, sub, torch.ones(n_pass, dtype=torch.bool,
-                                                            device=self.device), kk)
-            gids = torch.where(local >= 0, idx[local.clamp_min(0).long()], -1)
-        ids = np.full((b, k), -1, np.int32)
-        dist = np.full((b, k), np.inf, np.float32)
-        gids = gids.cpu().numpy()
-        valid = gids >= 0
-        ids[:, :kk] = np.where(valid, gids, -1)
-        dist[:, :kk] = np.where(valid, d.cpu().numpy(), np.inf)
+        # large passing set: masked fused top-k over the whole corpus, ids
+        # come back global already; small: the passing rows gathered on the
+        # device
+        gathered = n_pass <= self.FULL_SCAN_FRAC * n
+        if gathered:
+            with tr.span("gather"):
+                idx = torch.nonzero(m).squeeze(1)
+                sub = self.vectors[idx]
+        with tr.span("scan"):
+            if gathered:
+                d, local = fused_masked_topk(q, sub, torch.ones(n_pass, dtype=torch.bool,
+                                                                device=self.device), kk)
+                gids = torch.where(local >= 0, idx[local.clamp_min(0).long()], -1)
+            else:
+                d, gids = fused_masked_topk(q, self.vectors, m, kk)
+            ids = np.full((b, k), -1, np.int32)
+            dist = np.full((b, k), np.inf, np.float32)
+            gids = gids.cpu().numpy()
+            valid = gids >= 0
+            ids[:, :kk] = np.where(valid, gids, -1)
+            dist[:, :kk] = np.where(valid, d.cpu().numpy(), np.inf)
         return SearchResult(dist, ids, time.perf_counter() - t0, self.strategy_name)
 
 
@@ -213,6 +229,7 @@ class PostFilterExec:
         k: int,
         ests: Sequence[Optional[float]],
         alive: Optional[np.ndarray] = None,
+        tracer=None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Row-faithful batched post-filter search (per-row predicates).
 
@@ -225,8 +242,16 @@ class PostFilterExec:
         share one IVF search, and candidates are filtered with one vectorised
         predicate evaluation per distinct predicate.  Because
         ``IVFIndex.search`` is row-independent, batched results equal B
-        independent calls.  Returns ``(dists (B, k), ids (B, k),
+        independent calls.  ``tracer`` opens, per shared search of a
+        round, an ``ivf.search`` span (``n_rows``; the index's own spans
+        inside) and a ``post.check`` span over the predicate checks and the
+        first-k pick.  Returns ``(dists (B, k), ids (B, k),
         expansion_rounds (B,))``."""
+        tr = tracer if tracer is not None else NULL_TRACER
+        # untraced, the index is called by its plain public signature:
+        # the benchmark's fault checks (``bench/tests/test_bench_faults.py``)
+        # put a ``search(queries, k, nprobe, mask)`` of their own in its place
+        traced = {"tracer": tr} if tr.enabled else {}
         b = q.shape[0]
         n, n_lists = self.index.n, self.index.n_lists
         params = [self.initial_params(k, e) for e in ests]
@@ -243,32 +268,34 @@ class PostFilterExec:
                 groups.setdefault((int(want[qi]), int(nprobe[qi])), []).append(int(qi))
             for (w, npb), rows_l in groups.items():
                 rows = np.asarray(rows_l)
-                d, ids = self.index.search(q[rows], w, nprobe=npb)
-                keep = np.zeros(ids.shape, bool)
-                bypred: dict = {}
-                for j, qi in enumerate(rows_l):
-                    bypred.setdefault(preds[qi], []).append(j)
-                for p, js in bypred.items():
-                    flat = ids[js].reshape(-1)
-                    pos = flat >= 0
-                    kp = np.zeros(flat.size, bool)
-                    if pos.any():
-                        kp[pos] = p.eval(self.cat[flat[pos]], self.num[flat[pos]])
-                        if alive is not None:
-                            kp[pos] &= alive[flat[pos]]
-                    keep[js] = kp.reshape(len(js), -1)
-                # first k passing candidates per row, in distance order
-                kk = min(k, ids.shape[1])
-                order = np.argsort(~keep, axis=1, kind="stable")[:, :kk]
-                sel_i = np.take_along_axis(ids, order, axis=1)
-                sel_d = np.take_along_axis(d, order, axis=1)
-                sel_keep = np.take_along_axis(keep, order, axis=1)
-                blk_i = np.full((rows.size, k), -1, np.int32)
-                blk_d = np.full((rows.size, k), np.inf, np.float32)
-                blk_i[:, :kk] = np.where(sel_keep, sel_i, -1)
-                blk_d[:, :kk] = np.where(sel_keep, sel_d, np.inf)
-                out_i[rows] = blk_i
-                out_d[rows] = blk_d
+                with tr.span("ivf.search", n_rows=rows.size):
+                    d, ids = self.index.search(q[rows], w, nprobe=npb, **traced)
+                with tr.span("post.check"):
+                    keep = np.zeros(ids.shape, bool)
+                    bypred: dict = {}
+                    for j, qi in enumerate(rows_l):
+                        bypred.setdefault(preds[qi], []).append(j)
+                    for p, js in bypred.items():
+                        flat = ids[js].reshape(-1)
+                        pos = flat >= 0
+                        kp = np.zeros(flat.size, bool)
+                        if pos.any():
+                            kp[pos] = p.eval(self.cat[flat[pos]], self.num[flat[pos]])
+                            if alive is not None:
+                                kp[pos] &= alive[flat[pos]]
+                        keep[js] = kp.reshape(len(js), -1)
+                    # first k passing candidates per row, in distance order
+                    kk = min(k, ids.shape[1])
+                    order = np.argsort(~keep, axis=1, kind="stable")[:, :kk]
+                    sel_i = np.take_along_axis(ids, order, axis=1)
+                    sel_d = np.take_along_axis(d, order, axis=1)
+                    sel_keep = np.take_along_axis(keep, order, axis=1)
+                    blk_i = np.full((rows.size, k), -1, np.int32)
+                    blk_d = np.full((rows.size, k), np.inf, np.float32)
+                    blk_i[:, :kk] = np.where(sel_keep, sel_i, -1)
+                    blk_d[:, :kk] = np.where(sel_keep, sel_d, np.inf)
+                    out_i[rows] = blk_i
+                    out_d[rows] = blk_d
             got = (out_i[pending] >= 0).sum(1)
             exhausted = (want[pending] >= n) & (nprobe[pending] >= n_lists)
             more = (got < k) & ~exhausted & (rounds[pending] + 1 < self.max_rounds)

@@ -45,6 +45,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs.trace import NULL_TRACER
 from .gbm import GradientBoostingRegressor
 from .predicates import LabelEq, Or, Predicate, label_ids
 from .stats import DatasetStats
@@ -91,6 +92,9 @@ class SelectivityEstimator:
         # the engine's LiveCorpus, attached by build_stats(): its tombstones
         # compose out of the exact fast path's popcount
         self.live = None
+        # the engine's tracer (set_tracer): each predicate-cache miss of the
+        # exact path compiles under a ``bitmap_compile`` span
+        self.tracer = NULL_TRACER
 
     # ------------------------------------------------------------------
     def features(self, pred: Predicate) -> np.ndarray:
@@ -165,7 +169,7 @@ class SelectivityEstimator:
         tombstoned rows' bits set (deletes never rewrite the index);
         exactness is preserved by composing the tombstone words out here:
         ``popcount(words ANDNOT tomb) / live_count``."""
-        compiled = (self.cache.get_or_compile(pred, self.index)
+        compiled = (self.cache.get_or_compile(pred, self.index, tracer=self.tracer)
                     if self.cache is not None else self.index.compile(pred))
         live = self.live
         if live is not None and live.n_deleted:

@@ -19,6 +19,7 @@ from collections import OrderedDict
 from typing import Dict, Tuple
 
 from ..core.predicates import AnyPredicate, LabelEq, Not, Or, Predicate, RangePred
+from ..obs.trace import NULL_TRACER
 from .compile import AttributeIndex, CompiledPredicate
 
 __all__ = ["canonical_key", "PredicateCache"]
@@ -72,7 +73,10 @@ class PredicateCache:
     def __len__(self) -> int:
         return len(self._store)
 
-    def get_or_compile(self, pred: AnyPredicate, index: AttributeIndex) -> CompiledPredicate:
+    def get_or_compile(self, pred: AnyPredicate, index: AttributeIndex,
+                       tracer=None) -> CompiledPredicate:
+        """The cached compilation of ``pred``; a miss compiles it, under a
+        ``bitmap_compile`` span of ``tracer`` when one is given."""
         key = canonical_key(pred)
         hit = self._store.get(key)
         if hit is not None:
@@ -80,7 +84,9 @@ class PredicateCache:
             self._store.move_to_end(key)
             return hit
         self.misses += 1
-        compiled = index.compile(pred)
+        tr = tracer if tracer is not None else NULL_TRACER
+        with tr.span("bitmap_compile"):
+            compiled = index.compile(pred)
         self._store[key] = compiled
         if len(self._store) > self.capacity:
             old_key, _ = self._store.popitem(last=False)

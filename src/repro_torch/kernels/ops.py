@@ -8,7 +8,7 @@ scans, ``decode_attention`` for the LM's decode step.
 from __future__ import annotations
 
 import time
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -21,12 +21,14 @@ __all__ = [
     "masked_l2_topk", "fused_masked_topk", "decode_attention", "KPAD",
     "record_dispatch", "dispatch_counts", "dispatch_wall",
     "reset_dispatch_stats", "kernel_launches", "reset_kernel_launches",
+    "device_timing_begin", "device_timing_end",
 ]
 
 # ----------------------------------------------------------------------
 # process-global dispatch ledger, as in the reference: one count and the
 # dispatch-call wall seconds per named route.  Device work is asynchronous,
-# so the wall is the enqueue time; results reach the host at the caller.
+# so on a CUDA device the wall is the enqueue time; results reach the host
+# at the caller.
 # ----------------------------------------------------------------------
 _DISPATCH_COUNTS: Dict[str, int] = {}
 _DISPATCH_WALL: Dict[str, float] = {}
@@ -35,6 +37,59 @@ _DISPATCH_WALL: Dict[str, float] = {}
 def record_dispatch(name: str, seconds: float = 0.0) -> None:
     _DISPATCH_COUNTS[name] = _DISPATCH_COUNTS.get(name, 0) + 1
     _DISPATCH_WALL[name] = _DISPATCH_WALL.get(name, 0.0) + float(seconds)
+
+
+# device time of ``fused_masked_topk``'s launches on a CUDA device: while a
+# reader is open (a traced ``execute`` span), each call is bracketed by two
+# CUDA events on its stream; with none open nothing is recorded
+_EVENTS: Optional[List[Tuple[str, object, object]]] = None
+_READERS = 0
+
+
+def device_timing_begin() -> int:
+    """Open a reader of the launches' device time; returns its mark."""
+    global _EVENTS, _READERS
+    if _EVENTS is None:
+        _EVENTS = []
+    _READERS += 1
+    return len(_EVENTS)
+
+
+def device_timing_end(mark: int) -> Dict[str, float]:
+    """Close the reader opened at ``mark``: summed device seconds per
+    dispatch name of the launches since.  Read after the results' host copy,
+    so every event has completed and reading them waits for nothing; a
+    launch whose end has not completed (a body that raised before its host
+    copy) is left out.  The reader closes whatever the reading raises."""
+    global _EVENTS, _READERS
+    out: Dict[str, float] = {}
+    try:
+        for name, a, b in _EVENTS[mark:]:
+            if b.query():
+                out[name] = out.get(name, 0.0) + 1e-3 * a.elapsed_time(b)
+    finally:
+        _READERS -= 1
+        if _READERS == 0:
+            _EVENTS = None
+    return out
+
+
+def _launch_start(device: torch.device):
+    """A started event on ``device``'s stream while a reader is open."""
+    if _EVENTS is None or device.type != "cuda":
+        return None
+    stream = torch.cuda.current_stream(device)
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev, stream
+
+
+def _launch_end(name: str, start) -> None:
+    if start is not None:
+        ev, stream = start
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(stream)
+        _EVENTS.append((name, ev, end))
 
 
 def dispatch_counts() -> Dict[str, int]:
@@ -95,15 +150,18 @@ def fused_masked_topk(
     name ``fused_masked_topk_l2_topk``.
     """
     t0 = time.perf_counter()
+    start = _launch_start(queries.device)
     q, x, m = _prep(queries, corpus, mask)
     if k <= KPAD:
         out = masked_l2_topk_dispatch(q, x, m, k, empty=float("inf"))
-        record_dispatch("fused_masked_topk", time.perf_counter() - t0)
+        name = "fused_masked_topk"
     else:
         from ..index.flat import l2_topk
 
         out = l2_topk(q, x, k, m)
-        record_dispatch("fused_masked_topk_l2_topk", time.perf_counter() - t0)
+        name = "fused_masked_topk_l2_topk"
+    _launch_end(name, start)
+    record_dispatch(name, time.perf_counter() - t0)
     return out
 
 

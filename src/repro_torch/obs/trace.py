@@ -22,9 +22,12 @@ recorded tracer into a per-stage wall ranking.
 
 On a CUDA device a span's ``wall_s`` ends after its device work: the
 executors hand back host arrays, which waits for the device.  The
-``kernel:<name>`` wall sub-costs come from the dispatch ledger
-(``repro_torch.kernels.ops``), which times the enqueue of a kernel, not
-its device work; the profiler measures that.
+``kernel:<name>`` sub-costs of an ``execute`` span are, for
+``repro_torch.kernels.ops.fused_masked_topk`` on a CUDA device, its
+launches' device time from CUDA events, recorded only while a tracer is
+enabled and read at the span's close, after the results' host copy;
+elsewhere (the CPU, the IVF search, the routed backends) they are the
+dispatch call's wall.
 """
 from __future__ import annotations
 
@@ -211,10 +214,11 @@ def span_summary(tracer: Tracer) -> List[Dict[str, Any]]:
 
     One row per span name with ``count``, inclusive ``wall_s``, and
     exclusive ``self_s`` (inclusive minus children — the stage's own
-    cost); per-kernel wall sub-costs recorded via ``add_wall`` surface as
-    ``kernel:<name>`` pseudo-stages (enqueue walls on a CUDA device, not
-    device time; the reference ranks them against its
-    ``launch/roofline.py``, which the port does not have yet).  Sorted by
+    cost); per-kernel sub-costs recorded via ``add_wall`` surface as
+    ``kernel:<name>`` pseudo-stages (``fused_masked_topk``'s device time
+    on a CUDA device, else the call's wall; the reference ranks them
+    against its ``launch/roofline.py``, which the port does not have
+    yet).  Sorted by
     ``self_s`` descending (ties broken by name for determinism of the
     row ORDER — the wall values themselves are the real ledger).
     """

@@ -10,8 +10,10 @@ Prometheus exposition byte for byte, ``publish_stats``, the deterministic
 span tree of a traced cold replay (plain, DNF and live traffic, a
 compaction included), its JSONL export apart from wall clock, the keys of
 ``stats()``, and probe sampling and estimates.  The span trees differ only
-where ``SPAN_EXCEPTIONS`` says, each documented in ROADMAP.md.  The kernel
-budget gauges are the port's own: shared memory per block, not VMEM.
+where ``SPAN_EXCEPTIONS`` says, each documented in ROADMAP.md, and by the
+spans only the port opens (``PORT_ONLY_SPANS``), which every comparison
+with the reference drops.  The kernel budget gauges are the port's own:
+shared memory per block, not VMEM.
 """
 import json
 
@@ -56,6 +58,51 @@ SPAN_EXCEPTIONS = {
     # reference's per-shard search opens none
     "sharded_query": "shard",
 }
+
+
+# Spans the port opens and the reference does not (ROADMAP.md, "Documented
+# differences"): the host steps inside an exact group, the IVF post path and
+# predicate compilation, and the results' packaging after execute.  Every
+# comparison with the reference drops them with their subtrees and
+# renumbers the rest depth-first (the order spans open in); every other
+# span, attribute and order stays compared.
+PORT_ONLY_SPANS = frozenset({
+    "mask", "h2d", "gather", "scan",                       # inside an exact group
+    "ivf.search", "ivf.probe", "ivf.scan", "post.check",   # inside a post group
+    "bitmap_compile",                                      # inside predicate_compile
+    "package",                                             # after execute
+})
+
+
+def _common(tree):
+    """A deterministic tree without ``PORT_ONLY_SPANS`` (and their
+    subtrees), span ids renumbered depth-first."""
+    nxt = iter(range(1 << 30))
+
+    def walk(nodes, parent):
+        out = []
+        for n in nodes:
+            if n["name"] not in PORT_ONLY_SPANS:
+                sid = next(nxt)
+                out.append({**n, "span_id": sid, "parent_id": parent,
+                            "children": walk(n["children"], sid)})
+        return out
+
+    return walk(tree, -1)
+
+
+def _common_rows(rows):
+    """JSONL rows (depth-first) without ``PORT_ONLY_SPANS`` and their
+    subtrees, span ids renumbered in order."""
+    new_id, out = {}, []
+    for r in rows:
+        if r["name"] in PORT_ONLY_SPANS or (r["parent_id"] != -1
+                                            and r["parent_id"] not in new_id):
+            continue
+        new_id[r["span_id"]] = len(out)
+        out.append({**r, "span_id": new_id[r["span_id"]],
+                    "parent_id": new_id.get(r["parent_id"], -1)})
+    return out
 
 
 def _pair(ds, **cfg):
@@ -248,9 +295,11 @@ def test_span_tree_equals_reference(system):
     b, _ = _traced_run(ref, rt, rr, ro.Tracer())
     again, _ = _traced_run(port, t, pr, po.Tracer())
     assert a.deterministic_tree() == again.deterministic_tree()
-    assert a.deterministic_tree() == b.deterministic_tree()
+    assert _common(a.deterministic_tree()) == b.deterministic_tree()
     names = {s.name for s in a.spans()}
     assert {"batch", "plan", "predicate_compile", "execute", "group"} <= names
+    assert PORT_ONLY_SPANS <= names
+    assert not names & {s.name for s in b.spans()} & PORT_ONLY_SPANS
     assert all(s.name == "batch" for s in a.roots)
     groups = [s for s in a.spans() if s.name == "group"]
     assert all({"decision", "backend", "knob", "n_rows"} <= set(g.attrs) for g in groups)
@@ -280,7 +329,7 @@ def test_single_query_and_clause_spans_equal_reference(system):
         eng.explain(ps[17], K)
         eng.set_tracer(None)
         trees.append(tracer)
-    assert trees[0].deterministic_tree() == trees[1].deterministic_tree()
+    assert _common(trees[0].deterministic_tree()) == trees[1].deterministic_tree()
     assert sum(s.name == "clause" for s in trees[0].spans()) == 5
 
 
@@ -296,19 +345,19 @@ def test_live_span_tree_equals_reference(system):
     names = {s.name for s in a.spans()}
     assert {"write", "compact"} <= names
     assert any(s.attrs.get("live") for s in a.spans() if s.name == "group")
+    pa = _common(a.deterministic_tree())
     # the exception holds only for group spans opened after the first
     # compaction: before it both packages search the same carried IVF
-    compact = min(s.span_id for s in a.spans() if s.name == "compact")
+    compact = min(n["span_id"] for n in _nodes(pa) if n["name"] == "compact")
     assert compact == min(s.span_id for s in b.spans() if s.name == "compact")
     key = SPAN_EXCEPTIONS["after_compaction"]
     assert any(key in n["attrs"] and n["span_id"] < compact
-               for n in _nodes(a.deterministic_tree()) if n["name"] == "group")
+               for n in _nodes(pa) if n["name"] == "group")
 
     def after(n):
         return n["name"] == "group" and n["span_id"] > compact
 
-    assert _strip(a.deterministic_tree(), (key,), after) == \
-        _strip(b.deterministic_tree(), (key,), after)
+    assert _strip(pa, (key,), after) == _strip(b.deterministic_tree(), (key,), after)
 
 
 def test_span_exception_k_above_kpad(system):
@@ -325,6 +374,7 @@ def test_span_exception_k_above_kpad(system):
         eng.batch_query(qs[:8], ps[:8], 130)
         eng.set_tracer(None)
         trees.append(tracer.deterministic_tree())
+    trees[0] = _common(trees[0])
     key = SPAN_EXCEPTIONS["k_above_kpad"]
 
     def rename(tree):
@@ -362,10 +412,10 @@ def test_span_exception_sharded_query(system):
         trees.append(tracer)
     a, b = trees
     assert any(s.name == SPAN_EXCEPTIONS["sharded_query"] for s in a.spans())
-    assert _shape(a.deterministic_tree(), "shard_fanout") == \
-        _shape(b.deterministic_tree(), "shard_fanout")
+    pa = _common(a.deterministic_tree())
+    assert _shape(pa, "shard_fanout") == _shape(b.deterministic_tree(), "shard_fanout")
     # the batch path (and a union's single query) fans out alike in both
-    batch = [n for n in a.deterministic_tree() if n["name"] == "shard_fanout"]
+    batch = [n for n in pa if n["name"] == "shard_fanout"]
     rbatch = [n for n in b.deterministic_tree() if n["name"] == "shard_fanout"]
     assert _shape(batch[-2:]) == _shape(rbatch[-2:])
 
@@ -399,7 +449,12 @@ def test_span_exception_routed_flat(system):
     b, _ = _traced_run(ref, rt, rr, ro.Tracer())
     assert any(s.attrs.get("backend") == "flat" and s.attrs.get("decision") == "post"
                for s in a.spans() if s.name == "group")
-    assert a.deterministic_tree() != b.deterministic_tree()
+    # a routed group's one port-only span is its mask's
+    routed = [s for s in a.spans() if s.name == "group" and s.attrs.get("decision") == "post"
+              and s.attrs.get("knob") != "adapt"]
+    assert routed and all([c.name for c in g.children] == ["mask"] for g in routed)
+    pa = _common(a.deterministic_tree())
+    assert pa != b.deterministic_tree()
     key = SPAN_EXCEPTIONS["routed_flat"]
 
     def routed_flat(n):
@@ -410,12 +465,11 @@ def test_span_exception_routed_flat(system):
 
     # the exception holds only there: the other execute spans keep the attr
     # and compare exactly, and where it is dropped the port counts more
-    assert any(key in n["attrs"] and not routed_flat(n) for n in _nodes(a.deterministic_tree()))
-    for n, m in zip(_nodes(a.deterministic_tree()), _nodes(b.deterministic_tree())):
+    assert any(key in n["attrs"] and not routed_flat(n) for n in _nodes(pa))
+    for n, m in zip(_nodes(pa), _nodes(b.deterministic_tree())):
         if routed_flat(n):
             assert n["attrs"].get(key, 0) > m["attrs"].get(key, 0)
-    assert _strip(a.deterministic_tree(), (key,), routed_flat) == \
-        _strip(b.deterministic_tree(), (key,), routed_flat)
+    assert _strip(pa, (key,), routed_flat) == _strip(b.deterministic_tree(), (key,), routed_flat)
 
 
 def test_span_summary_ordering(system):
@@ -445,7 +499,7 @@ def test_trace_jsonl_export_equals_reference(system, tmp_path):
     ids = {r["span_id"] for r in rows}
     assert all(r["parent_id"] in ids or r["parent_id"] == -1 for r in rows)
     assert all(set(r) == {"span_id", "parent_id", "name", "attrs", "wall"} for r in rows)
-    assert [{k: v for k, v in r.items() if k != "wall"} for r in rows] == \
+    assert [{k: v for k, v in r.items() if k != "wall"} for r in _common_rows(rows)] == \
         [{k: v for k, v in r.items() if k != "wall"} for r in rrows]
 
 
