@@ -76,7 +76,9 @@ class PredicateCache:
     def get_or_compile(self, pred: AnyPredicate, index: AttributeIndex,
                        tracer=None) -> CompiledPredicate:
         """The cached compilation of ``pred``; a miss compiles it, under a
-        ``bitmap_compile`` span of ``tracer`` when one is given."""
+        ``bitmap_compile`` span of ``tracer`` when one is given, which
+        carries ``cut_rows``: the rows its range leaves packed at their
+        interval cuts (:class:`~repro_torch.filter.ranges.RangeIndex`)."""
         key = canonical_key(pred)
         hit = self._store.get(key)
         if hit is not None:
@@ -86,7 +88,9 @@ class PredicateCache:
         self.misses += 1
         tr = tracer if tracer is not None else NULL_TRACER
         with tr.span("bitmap_compile"):
+            cut0 = index.ranges.cut_rows
             compiled = index.compile(pred)
+            tr.annotate(cut_rows=index.ranges.cut_rows - cut0)
         self._store[key] = compiled
         if len(self._store) > self.capacity:
             old_key, _ = self._store.popitem(last=False)

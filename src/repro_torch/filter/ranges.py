@@ -1,4 +1,4 @@
-"""Sorted-order + equi-depth bucket indexes answering interval predicates
+"""Sorted-order + equi-depth edge indexes answering interval predicates
 as bitmaps — no O(N) columnar compare.
 
 Per numeric attribute the index stores:
@@ -11,15 +11,21 @@ Per numeric attribute the index stores:
   quantises each bound through that dtype before ``searchsorted``, so the
   index includes/excludes boundary rows exactly as the scan does,
 * ``edges``  — B+1 equi-depth bucket boundaries in *position* space,
-* ``bucket_words`` — a (B, W) uint32 matrix: bucket b's precomputed bitmap
-  of the rows at sorted positions ``[edges[b], edges[b+1])``.
+* ``cum_words`` — a (B+1, W) uint32 matrix of *cumulative* edge bitmaps:
+  row i holds the rows at sorted positions ``[0, edges[i])``, so row 0 is
+  empty and row B is every row.
 
 An interval ``[lo, hi)`` maps to the sorted-position slice
-``[searchsorted(vals, lo, "left"), searchsorted(vals, hi, "left"))``; the
-fully covered buckets OR together via one vectorised reduce over the
-precomputed rows, and only the two partial boundary slices (at most one
-bucket's worth of rows each) pack individually.  Total cost is
-O(B · N/32 + N/B) words versus the scan's O(N) float compares.
+``[left, right) = [searchsorted(vals, lo, "left"), searchsorted(vals, hi,
+"left"))``.  Each cut snaps to its nearest edge, ``j0`` and ``j1``; the
+rows at ``[edges[j0], edges[j1])`` are ``cum_words[j1] ^ cum_words[j0]``,
+and the rows between each cut and its edge toggle by one XOR scatter (in
+where the slice reaches past its edge, out where it stops short).  A slice
+with fewer rows than those toggles packs directly: always so when both
+cuts snap to one edge, where it is at most one bucket.  Total cost is
+O(N/32) words plus at most half a bucket of rows per cut, where an OR over
+the covered buckets' rows would cost O(B · N/32).  ``cut_rows`` counts the
+rows packed at the cuts, for tracing.
 """
 from __future__ import annotations
 
@@ -34,14 +40,26 @@ __all__ = ["RangeIndex", "DEFAULT_BUCKETS"]
 DEFAULT_BUCKETS = 128
 
 
+def _nearest_edges(edges: np.ndarray, *pos: int) -> np.ndarray:
+    """Index of the edge nearest each sorted position (the lower on a tie)."""
+    p = np.asarray(pos, dtype=np.int64)
+    hi = np.searchsorted(edges, p, side="left")          # first edge >= p
+    lo = np.maximum(hi - 1, 0)
+    up = np.minimum(hi, edges.size - 1)
+    return np.where(p - edges[lo] <= edges[up] - p, lo, up)
+
+
 class RangeIndex:
     def __init__(self, n: int, orders: List[np.ndarray], vals: List[np.ndarray],
-                 edges: List[np.ndarray], bucket_words: List[np.ndarray]):
+                 edges: List[np.ndarray], cum_words: List[np.ndarray]):
         self.n = n
         self._orders = orders
         self._vals = vals
         self._edges = edges
-        self._bucket_words = bucket_words
+        self._cum_words = cum_words
+        # rows packed one by one at interval cuts, summed over every call:
+        # a tracer reads its delta across one compilation
+        self.cut_rows = 0
         # Staleness under a live corpus: sorted orders and equi-depth bucket
         # boundaries CANNOT be extended incrementally (an appended value
         # lands anywhere in the sorted permutation), so a mutated attribute
@@ -69,21 +87,21 @@ class RangeIndex:
         num = np.asarray(num)
         n = num.shape[0] if num.ndim >= 2 else 0
         a_num = num.shape[1] if num.ndim >= 2 else 0
-        orders, vals, edges, bucket_words = [], [], [], []
+        orders, vals, edges, cum_words = [], [], [], []
         for j in range(a_num):
             col = num[:, j]
             order = np.argsort(col, kind="stable").astype(np.int64)
             sv = np.ascontiguousarray(col[order])   # column dtype preserved
             b = max(1, min(int(n_buckets), n)) if n else 1
             e = np.round(np.linspace(0, n, b + 1)).astype(np.int64)
-            bw = np.zeros((b, n_words(n)), dtype=np.uint32)
+            cw = np.zeros((b + 1, n_words(n)), dtype=np.uint32)
             for i in range(b):
-                bw[i] = words_from_ids(order[e[i]:e[i + 1]], n)
+                cw[i + 1] = word_or(cw[i], words_from_ids(order[e[i]:e[i + 1]], n))
             orders.append(order)
             vals.append(sv)
             edges.append(e)
-            bucket_words.append(bw)
-        return RangeIndex(n, orders, vals, edges, bucket_words)
+            cum_words.append(cw)
+        return RangeIndex(n, orders, vals, edges, cum_words)
 
     # ------------------------------------------------------------------
     def _cut(self, attr: int, bound: float) -> int:
@@ -106,17 +124,21 @@ class RangeIndex:
         if right <= left:
             return empty_words(self.n)
         e = self._edges[attr]
-        i0 = int(np.searchsorted(e, left, side="left"))    # first edge >= left
-        i1 = int(np.searchsorted(e, right, side="right")) - 1  # last edge <= right
-        if i0 < i1:
-            # full buckets [i0, i1) OR'd in one vectorised reduce; only the
-            # boundary slices (each at most one bucket of rows) pack fresh
-            w = np.bitwise_or.reduce(self._bucket_words[attr][i0:i1], axis=0)
-            partial = np.concatenate([order[left:e[i0]], order[e[i1]:right]])
-        else:
-            w = empty_words(self.n)
-            partial = order[left:right]
-        return word_or(w, words_from_ids(partial, self.n))
+        j0, j1 = (int(j) for j in _nearest_edges(e, left, right))
+        # the rows between each cut and its edge, toggled around the rows
+        # [e[j0], e[j1]) of two cumulative rows
+        a0, b0 = sorted((left, int(e[j0])))
+        a1, b1 = sorted((right, int(e[j1])))
+        if right - left <= (b0 - a0) + (b1 - a1):
+            # always so when both cuts snap to one edge: at most one bucket
+            self.cut_rows += right - left
+            return words_from_ids(order[left:right], self.n)
+        self.cut_rows += (b0 - a0) + (b1 - a1)
+        cw = self._cum_words[attr]
+        w = cw[j1] ^ cw[j0]
+        ids = np.concatenate([order[a0:b0], order[a1:b1]])
+        np.bitwise_xor.at(w, ids >> 5, np.uint32(1) << (ids & 31).astype(np.uint32))
+        return w
 
     def union_words(self, attr: int, intervals: Sequence[Tuple[float, float]]) -> np.ndarray:
         """Bitmap of a union of intervals over one attribute.  ``RangePred``

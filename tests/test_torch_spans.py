@@ -11,15 +11,17 @@ its queries), and cold range predicates.  The spans nest as the engine
 opens them: ``mask``, ``h2d``, ``gather``, ``scan`` inside an exact group;
 ``ivf.search`` (``h2d``, ``ivf.probe``, ``ivf.scan`` with two ``h2d``) and
 ``post.check`` inside the post group; ``bitmap_compile`` inside
-``predicate_compile``; ``package`` a root after ``execute``.  The counters
-equal their hand counts, and the results are the same bits with tracing on
-and off.
+``predicate_compile``, with the rows its range leaves packed at their cuts;
+``package`` a root after ``execute``.  The counters equal their hand counts,
+and the results are the same bits with tracing on and off.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import EngineConfig, FilteredANNEngine, LabelEq, Predicate, RangePred
+from repro_torch.core import (EngineConfig, FilteredANNEngine, LabelEq, Not, Or, Predicate,
+                              RangePred, iter_leaves)
+from repro_torch.filter import PredicateCache
 from repro_torch.kernels import ops
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 
@@ -129,9 +131,58 @@ def test_counters_equal_their_hand_counts(system):
     assert passes == post.attrs["n_rows"] + post.attrs["expansion_rounds"]
     # the new spans carry no other attribute
     for s in tr.spans():
-        if s.name not in ("plan", "predicate_compile", "execute", "group", "h2d",
-                          "ivf.search"):
+        if s.name == "bitmap_compile":
+            assert set(s.attrs) == {"cut_rows"}
+        elif s.name not in ("plan", "predicate_compile", "execute", "group", "h2d",
+                            "ivf.search"):
             assert s.attrs == {}
+
+
+def _hand_cut_rows(num, pred, buckets=128):
+    """The rows a predicate's range leaves pack at their cuts, from the
+    column: a cut is the number of rows below its bound and costs its
+    distance to the nearest edge, unless the slice has fewer rows."""
+    n = num.shape[0]
+    edges = np.round(np.linspace(0, n, min(buckets, n) + 1))
+    total = 0
+    for leaf in iter_leaves(pred):
+        if isinstance(leaf, RangePred):
+            x = num[:, leaf.attr]
+            for lo, hi in leaf.intervals:
+                left, right = int((x < lo).sum()), int((x < hi).sum())
+                if right > left:
+                    total += min(right - left, int(np.abs(edges - left).min())
+                                 + int(np.abs(edges - right).min()))
+    return total
+
+
+def test_bitmap_compile_counts_its_cut_rows(system):
+    _, cat, num, eng, qs, preds = system
+    tr = Tracer()
+    _traced(eng, qs, preds, tr)
+    compiles = [s for s in tr.spans() if s.name == "bitmap_compile"]
+    # the batch's cold predicates in order: a label filter, then two ranges
+    got = [s.attrs["cut_rows"] for s in compiles]
+    assert got == [_hand_cut_rows(num, p) for p in (preds[0], preds[1], preds[3])]
+    assert got[0] == 0 and min(got[1:]) > 0
+    # several range leaves, a negated one and two terms: their sum, at most
+    # half a bucket a cut, and the same words untraced
+    year, score = (np.quantile(num[:, j], [0.1, 0.3, 0.55, 0.8, 0.9]) for j in (0, 1))
+    pred = Or((
+        Predicate(ranges=(RangePred(0, ((year[0], year[1]), (year[2], year[3]))),
+                          RangePred(1, ((score[0], score[4]),))),
+                  nots=(Not(RangePred(1, ((score[1], score[2]),))),)),
+        Predicate(labels=(LabelEq(1, 3),), ranges=(RangePred(1, ((score[3], score[4]),)),)),
+    ))
+    tr = Tracer()
+    traced = PredicateCache().get_or_compile(pred, eng.attr_index, tracer=tr)
+    plain = PredicateCache().get_or_compile(pred, eng.attr_index)
+    (span,) = tr.roots
+    assert span.attrs == {"cut_rows": _hand_cut_rows(num, pred)}
+    bucket = max(np.diff(np.round(np.linspace(0, len(num), 129))))
+    assert 0 < span.attrs["cut_rows"] <= 5 * 2 * int(np.ceil(bucket / 2))   # five intervals
+    np.testing.assert_array_equal(traced.words, plain.words)
+    np.testing.assert_array_equal(traced.mask(), pred.eval(cat, num))
 
 
 def test_results_are_the_same_bits_traced_and_not(system):
